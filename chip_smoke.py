@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (velox_tpu_torch).
+
+    python3 chip_smoke.py [--sf 10] [--tile-rows 16777216] [--runs 5] [--ptxas]
+
+Needs one CUDA device and nvcc; exits non-zero without them.  The TPC-H
+generator seeds every column from its table, name and scale factor, so the
+data is the same in every run.  The script
+
+1. prints the device (``torch.cuda`` name, ``nvidia-smi`` name and power limit);
+2. builds the CUDA kernels from ``velox_tpu_torch/csrc`` (seconds printed);
+3. holds each kernel against its plain PyTorch version at the shapes the
+   queries give it (one tile of SF-``sf`` ``lineitem``), by exact equality
+   (the sums are integer; addition wraps and is associative), and times
+   kernel, plain version and, where one PyTorch call computes the same, that
+   call, with CUDA events (median of ``--runs`` after a warm-up);
+4. sets every kernel's launch count to 0 and drives the main path once:
+   TPC-H Q6 and Q1 at SF ``sf`` through ``LocalExecutor`` over device-resident
+   tiles, row-exact against the numpy oracle, and the two ops the executor
+   does not call (``selective_sum``, ``grouped_int64_sums``) through their own
+   entry points over the same tiles, checked against the same answers; then
+   reads the counts and fails if any kernel was not launched;
+5. times Q6 and Q1 (median of ``--runs``), with the device-busy share from
+   ``torch.profiler``;
+6. prints the ``{"kernels": [...]}`` line and, last,
+   ``{"ok": true, "device": {...}}``.
+
+Every phase prints one JSON line; any failure ends the run with a traceback
+and a non-zero exit code.  ``bound_ms`` is bytes moved (each input read once,
+each output written once) over the published device-memory rate of the H100
+SXM, 3.35 TB/s, or integer operations over 67 Tops/s (the published
+non-tensor-core float32 rate, taken as the integer ALU rate), whichever is
+larger.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+DEVICE = "cuda"  # where the script itself allocates; the port's entry points default to it
+
+
+def say(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def median_ms(fn, runs: int) -> float:
+    """Median CUDA-event time of ``fn`` in ms over ``runs``, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def measured_bandwidth(runs: int) -> float:
+    """Device-memory bytes/s of a large int64 ``sum`` (read once)."""
+    import torch
+
+    x = torch.ones((1 << 27,), dtype=torch.int64, device=DEVICE)  # 1 GiB
+    ms = median_ms(lambda: x.sum(), runs)
+    return x.numel() * 8 / (ms * 1e-3)
+
+
+def device_busy_ms(fn, top: int = 6):
+    """(sum of device kernel time of one ``fn()`` in ms, the ``top`` kernels
+    as [name, ms, launches]) from torch.profiler; (None, []) when the
+    profiler reports no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # device-side rows only: a CPU operator's row repeats its kernels' time
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0
+            )
+            kernels.append([e.key[:80], us / 1e3, e.count])
+    total = sum(k[1] for k in kernels)
+    if total <= 0:
+        return None, []
+    kernels.sort(key=lambda k: -k[1])
+    return total, kernels[:top]
+
+
+def bound(bytes_moved: int, ops: int):
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' inputs, taken from the executors' own tiles
+
+
+def q1_piece_inputs(ex, tile):
+    """(cols, gid_live, plans, num_groups, mask, gids) as the executor's tile
+    step hands them to grouped_piece_sums (AggExecutor.piece_inputs)."""
+    import torch
+
+    from velox_tpu_torch.exec.runner import apply_streaming
+
+    agg = ex.agg_exec
+    batch2, _ = apply_streaming(tile, ex.lin.steps)
+    mask = batch2.active_mask()
+    gids = agg.grouping.group_ids(batch2)
+    cols, gid_live = agg.piece_inputs(tile, mask, gids)
+    return cols, gid_live, agg._piece_plan[1], agg.num_groups, mask, gids.to(torch.int32)
+
+
+def q6_selective_inputs(tile):
+    """Q6 as selective_sum sees it: int64 copies of the product and the three
+    filter columns of one tile, and Q6's bands in the device representation."""
+    import torch
+
+    from velox_tpu_torch.connectors.tpch.gen import _days
+
+    def wide(name):
+        return tile.column(name).data.to(torch.int64)
+
+    values = wide("l_extendedprice") * wide("l_discount")
+    filters = [wide("l_shipdate"), wide("l_discount"), wide("l_quantity")]
+    lo = _days("1994-01-01")
+    bounds = [(lo, lo + 364), (5, 7), (-(1 << 62), 2399)]
+    return values, filters, bounds
+
+
+Q1_MEASURES = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+
+
+def q1_group_sum_inputs(tile):
+    import torch
+
+    return [tile.column(n).data.to(torch.int64) for n in Q1_MEASURES]
+
+
+# ---------------------------------------------------------------------------
+
+
+def check_kernels(ex1, tile1, tile6, runs: int):
+    """Phase 3: each kernel vs its plain version on one tile; returns the
+    per-kernel records (without the main path's launch counts)."""
+    import torch
+
+    from velox_tpu_torch.ops.group_piece import (
+        grouped_piece_sums,
+        grouped_piece_sums_plain,
+    )
+    from velox_tpu_torch.ops.group_sum import (
+        grouped_int64_sums,
+        grouped_int64_sums_plain,
+    )
+    from velox_tpu_torch.ops.selective_sum import selective_sum, selective_sum_plain
+
+    records = []
+
+    def max_abs_err(got, want) -> int:
+        err = 0
+        for g, w in zip(got, want):
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+        return err
+
+    # K1 selective_sum at Q6's shape
+    values, filters, bounds = q6_selective_inputs(tile6)
+    got = selective_sum(values, filters, bounds)
+    want = selective_sum_plain(values, filters, bounds)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    assert err == 0 and int(want[2]) > 0, ("selective_sum disagrees", got, want)
+    n = values.shape[0]
+    b_ms, b_by = bound(tensor_bytes(values, *filters) + 24, 9 * n)
+    records.append(
+        dict(
+            name="selective_sum", route="cuda",
+            source="velox_tpu_torch/csrc/kernels.cu",
+            replaces="velox_tpu/ops/pallas_kernels.py:107",
+            max_abs_err=err,
+            ms=median_ms(lambda: selective_sum(values, filters, bounds), runs),
+            plain_ms=median_ms(lambda: selective_sum_plain(values, filters, bounds), runs),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            rows=n, bytes=tensor_bytes(values, *filters) + 24,
+        )
+    )
+    del values, filters
+
+    # K2 grouped_piece_sums at Q1's shape
+    cols, gid_live, plans, groups, mask, gids = q1_piece_inputs(ex1, tile1)
+    got = grouped_piece_sums(cols, gid_live, plans, groups)
+    want = grouped_piece_sums_plain(cols, gid_live, plans, groups)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    assert err == 0 and int(want[0].sum()) > 0, ("grouped_piece_sums disagrees", got, want)
+    n = gid_live.shape[0]
+    live = int((gid_live >= 0).sum())
+    ops = live * sum(2 * len(p.factors) + 1 for p in plans)
+    moved = tensor_bytes(*cols, gid_live) + 8 * groups * len(plans)
+    b_ms, b_by = bound(moved, ops)
+    records.append(
+        dict(
+            name="grouped_piece_sums", route="cuda",
+            source="velox_tpu_torch/csrc/kernels.cu",
+            replaces="velox_tpu/ops/pallas_group_piece.py:235",
+            max_abs_err=err,
+            ms=median_ms(lambda: grouped_piece_sums(cols, gid_live, plans, groups), runs),
+            plain_ms=median_ms(
+                lambda: grouped_piece_sums_plain(cols, gid_live, plans, groups), runs
+            ),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            rows=n, bytes=moved, specs=len(plans), groups=groups,
+            column_dtypes=[str(c.dtype) for c in cols],
+        )
+    )
+
+    # K3 grouped_int64_sums: G = 12 over int64 copies of Q1's measure columns
+    wide = q1_group_sum_inputs(tile1)
+    got = grouped_int64_sums(wide, gids, mask, groups)
+    want = grouped_int64_sums_plain(wide, gids, mask, groups)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    assert err == 0 and int(want[0].sum()) > 0, ("grouped_int64_sums disagrees", got, want)
+    moved = tensor_bytes(*wide, gids, mask) + 8 * groups * len(wide)
+    b_ms, b_by = bound(moved, live * len(wide))
+    # the yardstick: ONE index_add_ over the pre-stacked (N, 4) matrix, with
+    # masked rows pointed at a spare slot; stacking and folding are not timed
+    stacked = torch.stack(wide, dim=1)
+    index = torch.where(mask, gids.to(torch.int64), torch.full_like(gids, groups, dtype=torch.int64))
+    lib = lambda: torch.zeros(  # noqa: E731
+        (groups + 1, len(wide)), dtype=torch.int64, device=DEVICE
+    ).index_add_(0, index, stacked)
+    assert torch.equal(lib()[:groups].t().contiguous(), torch.stack(list(want)))
+    records.append(
+        dict(
+            name="grouped_int64_sums", route="cuda",
+            source="velox_tpu_torch/csrc/kernels.cu",
+            replaces="velox_tpu/ops/pallas_group_sum.py:139",
+            max_abs_err=err,
+            ms=median_ms(lambda: grouped_int64_sums(wide, gids, mask, groups), runs),
+            plain_ms=median_ms(
+                lambda: grouped_int64_sums_plain(wide, gids, mask, groups), runs
+            ),
+            bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lib, runs),
+            rows=n, bytes=moved, columns=len(wide), groups=groups,
+        )
+    )
+    return records
+
+
+def drive_ops(tiles6, ex1, tiles1, q1_result, q6_exact: int):
+    """The two ops the executor does not call, through their own entry points
+    over all tiles, held against the queries' answers."""
+    import numpy as np
+    import torch
+
+    from velox_tpu_torch.ops.group_sum import grouped_int64_sums
+    from velox_tpu_torch.ops.selective_sum import selective_sum
+
+    hi = lo = count = 0
+    for tile in tiles6:
+        h, l, c = selective_sum(*q6_selective_inputs(tile))
+        hi, lo, count = hi + int(h), lo + int(l), count + int(c)
+    assert hi * (1 << 32) + lo == q6_exact, ("selective_sum vs Q6", hi, lo, q6_exact)
+
+    groups = ex1.agg_exec.num_groups
+    sums = torch.zeros((len(Q1_MEASURES), groups), dtype=torch.int64, device=DEVICE)
+    for tile in tiles1:
+        _, _, _, _, mask, gids = q1_piece_inputs(ex1, tile)
+        sums += torch.stack(
+            list(grouped_int64_sums(q1_group_sum_inputs(tile), gids, mask, groups))
+        )
+    sums = sums.cpu().numpy()
+    for row, name in ((0, "sum_qty"), (1, "sum_base_price")):
+        got = sums[row][sums[row] != 0]
+        want = np.sort(np.asarray(q1_result.columns[name], dtype=np.int64))
+        assert np.array_equal(np.sort(got), want), (name, got, want)
+    return count
+
+
+def prepare_query(num: int, sf: float, tile_rows: int):
+    """Generate the tables, plan the query and upload its tiles; returns
+    (executor, tiles, tables, report dict)."""
+    import torch
+
+    from velox_tpu_torch.connectors.tpch.plans import build_query, load_query_tables
+    from velox_tpu_torch.exec.runner import LocalExecutor
+
+    t0 = time.perf_counter()
+    tables = load_query_tables(num, sf)
+    gen_s = time.perf_counter() - t0
+    plan = build_query(num, tables)
+    ex = LocalExecutor(plan, tile_rows=tile_rows)  # device=None: the CUDA device
+    t0 = time.perf_counter()
+    tiles = ex.device_tiles()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    return ex, tiles, tables, dict(
+        rows=tables["lineitem"].num_rows, tiles=len(tiles), generate_s=gen_s,
+        upload_s=upload_s, kind=ex.kind, mode=ex.agg_exec.mode,
+        num_groups=ex.agg_exec.num_groups, piece_path=ex.use_piece,
+        accumulators=[len(a.acc_ops) for a in ex.agg_exec.aggs],
+        tile_bytes=ex.pool.reserved,
+    )
+
+
+def check_result(num: int, ex, tiles, tables):
+    import pandas as pd
+
+    from velox_tpu_torch.connectors.tpch.plans import oracle_result
+
+    result = ex.run(prefetched_tiles=tiles)
+    got = result.to_pandas().reset_index(drop=True)
+    want = oracle_result(num, tables).reset_index(drop=True)
+    pd.testing.assert_frame_equal(got, want, check_dtype=False, rtol=1e-9)
+    return result, got
+
+
+def time_query(ex, tiles, runs: int):
+    import torch
+
+    def once():
+        ex.run(prefetched_tiles=tiles)
+
+    once()
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        once()  # ends in the result fetch, which waits for the device
+        walls.append((time.perf_counter() - t0) * 1e3)
+    engine_ms = statistics.median(walls)
+    busy, top = device_busy_ms(once)
+    return dict(
+        engine_ms=engine_ms, runs_ms=walls, device_busy_ms=busy,
+        host_share=None if busy is None else max(0.0, 1.0 - busy / engine_ms),
+        top_kernels=top,
+    )
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sf", type=float, default=10.0)
+    ap.add_argument("--tile-rows", type=int, default=1 << 24)
+    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--ptxas", action="store_true", help="print ptxas -v of the build")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+
+    from velox_tpu_torch.ops import cuda_build
+    from velox_tpu_torch.ops.group_piece import grouped_piece_sums
+    from velox_tpu_torch.ops.group_sum import grouped_int64_sums
+    from velox_tpu_torch.ops.selective_sum import selective_sum
+
+    wrappers = {
+        "selective_sum": selective_sum,
+        "grouped_piece_sums": grouped_piece_sums,
+        "grouped_int64_sums": grouped_int64_sums,
+    }
+    t_begin = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    say("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
+        torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    path = cuda_build.build(verbose=args.ptxas)
+    cuda_build.library()
+    say("build", seconds=time.perf_counter() - t0, nvcc_seconds=cuda_build.build_seconds,
+        library=path.rsplit("/", 1)[-1], flags=" ".join(cuda_build.NVCC_FLAGS))
+
+    bw = measured_bandwidth(args.runs)
+    say("bandwidth", measured_bytes_per_s=bw, published_bytes_per_s=PEAK_BYTES_PER_S)
+
+    ex6, tiles6, tables6, rep6 = prepare_query(6, args.sf, args.tile_rows)
+    ex1, tiles1, tables1, rep1 = prepare_query(1, args.sf, args.tile_rows)
+    assert rep1["piece_path"] is True and rep6["piece_path"] is False, (rep1, rep6)
+
+    records = check_kernels(ex1, tiles1[0], tiles6[0], args.runs)
+    for r in records:
+        r["bound_ms_at_measured_bandwidth"] = r["bytes"] / bw * 1e3
+    say("kernels", kernel_names=[r["name"] for r in records], records=records)
+
+    # ---- the main path, with the counts set to 0 just before it
+    for w in wrappers.values():
+        w.launches = 0
+    result6, got6 = check_result(6, ex6, tiles6, tables6)
+    result1, got1 = check_result(1, ex1, tiles1, tables1)
+    q6_exact = int(result6.columns["revenue"][0])  # unscaled DECIMAL(18,4)
+    passing = drive_ops(tiles6, ex1, tiles1, result1, q6_exact)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    assert launches["grouped_piece_sums"] == len(tiles1), launches
+    assert launches["selective_sum"] == len(tiles6), launches
+    assert launches["grouped_int64_sums"] == len(tiles1), launches
+    assert all(n > 0 for n in launches.values()), launches
+    say("main_path", launches=launches, q6_rows_passing=passing,
+        q6_revenue=float(got6["revenue"][0]), q1_groups=int(len(got1)),
+        q1_count_order=[int(x) for x in got1["count_order"]])
+
+    # ---- timings
+    for num, ex, tiles, rep in ((6, ex6, tiles6, rep6), (1, ex1, tiles1, rep1)):
+        before = grouped_piece_sums.launches
+        timing = time_query(ex, tiles, args.runs)
+        k2 = grouped_piece_sums.launches - before
+        if num == 1:
+            # warm-up + timed runs + the profiled run, one launch per tile each
+            assert k2 == len(tiles) * (args.runs + 2), (k2, len(tiles), args.runs)
+        else:
+            assert k2 == 0, k2
+        rows_per_s = rep["rows"] / (timing["engine_ms"] * 1e-3)
+        say(f"q{num}", sf=args.sf, **rep, **timing, rows_per_s=rows_per_s,
+            k2_launches_while_timing=k2, correct=True)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in records:
+        r["launches"] = launches[r["name"]]
+    say("total", seconds=time.perf_counter() - t_begin)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,3 +25,11 @@ os.environ["VELOX_TPU_XLA_CACHE"] = "off"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device and nvcc (the hand-written kernels have no "
+        "CPU mode); skipped where there is none",
+    )

@@ -1,0 +1,99 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These build ``velox_tpu_torch/csrc`` with nvcc and launch on a CUDA device, so
+they are skipped where there is none (run them on a GPU machine with
+``python -m pytest tests/test_torch_gpu_kernels.py -m gpu``).  Exact equality:
+integer addition wraps and is associative, so the order of the atomics cannot
+show."""
+
+import numpy as np
+import pytest
+import torch
+
+from velox_tpu_torch.ops import group_piece, group_sum, selective_sum as sel
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [1, 1000, (1 << 20) + 7])
+@pytest.mark.parametrize("n_filters", [0, 1, 3])
+def test_selective_sum_kernel(cuda, n, n_filters):
+    rng = np.random.default_rng(n + n_filters)
+    values = torch.from_numpy(rng.integers(-(1 << 45), 1 << 45, n)).to(cuda)
+    filters = [torch.from_numpy(rng.integers(0, 100, n)).to(cuda) for _ in range(n_filters)]
+    bounds = [(10, 60)] * n_filters
+    before = sel.selective_sum.launches
+    got = sel.selective_sum(values, filters, bounds)
+    want = sel.selective_sum_plain(values, filters, bounds)
+    torch.cuda.synchronize()
+    assert sel.selective_sum.launches == before + 1
+    assert [int(g) for g in got] == [int(w) for w in want]
+
+
+@pytest.mark.parametrize("n,groups,gid_dtype", [(1024, 6, torch.int8), ((1 << 20) + 3, 64, torch.int32)])
+def test_grouped_piece_sums_kernel(cuda, n, groups, gid_dtype):
+    rng = np.random.default_rng(n)
+    cols = [
+        torch.from_numpy(rng.integers(90000, 10500000, n).astype(np.int32)).to(cuda),
+        torch.from_numpy(rng.integers(100, 5001, n).astype(np.int16)).to(cuda),
+        torch.from_numpy(rng.integers(0, 11, n).astype(np.int8)).to(cuda),
+    ]
+    gid = rng.integers(0, groups, n)
+    gid[rng.random(n) < 0.1] = -1
+    gid = torch.from_numpy(gid).to(gid_dtype).to(cuda)
+    F = group_piece.Factor
+    plans = [
+        group_piece.plan_spec(s)
+        for s in (
+            [],
+            [F(1, 1, 0, 100, 5000)],
+            [F(0, 1, 0, 90000, 10500000), F(2, -1, 100, 90, 100)],
+        )
+    ]
+    before = group_piece.grouped_piece_sums.launches
+    got = group_piece.grouped_piece_sums(cols, gid, plans, groups)
+    want = group_piece.grouped_piece_sums_plain(cols, gid, plans, groups)
+    torch.cuda.synchronize()
+    assert group_piece.grouped_piece_sums.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,groups,ncols", [(2048, 3, 1), ((1 << 20) + 5, 12, 4)])
+def test_grouped_int64_sums_kernel(cuda, n, groups, ncols):
+    rng = np.random.default_rng(n)
+    cols = [
+        torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n)).to(cuda) for _ in range(ncols)
+    ]
+    gids = torch.from_numpy(rng.integers(0, groups, n).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    before = group_sum.grouped_int64_sums.launches
+    got = group_sum.grouped_int64_sums(cols, gids, mask, groups)
+    want = group_sum.grouped_int64_sums_plain(cols, gids, mask, groups)
+    torch.cuda.synchronize()
+    assert group_sum.grouped_int64_sums.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_q1_on_the_card_takes_the_kernel(cuda):
+    import pandas as pd
+
+    from velox_tpu_torch.connectors.tpch.plans import build_query, load_query_tables, oracle_result
+    from velox_tpu_torch.exec.runner import LocalExecutor
+
+    tables = load_query_tables(1, 0.05)
+    ex = LocalExecutor(build_query(1, tables), tile_rows=1 << 16)  # default: CUDA
+    before = group_piece.grouped_piece_sums.launches
+    got = ex.run().to_pandas().reset_index(drop=True)
+    assert group_piece.grouped_piece_sums.launches - before == ex.source_table.num_tiles(ex.capacity)
+    pd.testing.assert_frame_equal(
+        got, oracle_result(1, tables).reset_index(drop=True), check_dtype=False, rtol=1e-9
+    )

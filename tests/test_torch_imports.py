@@ -1,0 +1,124 @@
+"""The port stands alone: importing it (or chip_smoke) pulls in neither jax
+nor the JAX package, and its entry points refuse to run without a CUDA device
+unless the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import sys
+sys.path.insert(0, {root!r})
+import {module}
+import velox_tpu_torch.exec.runner, velox_tpu_torch.connectors.tpch.plans
+import velox_tpu_torch.ops.group_piece, velox_tpu_torch.ops.group_sum
+import velox_tpu_torch.ops.selective_sum, velox_tpu_torch.ops.cuda_build
+import velox_tpu_torch.testing
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "velox_tpu" or m.startswith("velox_tpu."))
+print("BAD", bad)
+"""
+
+
+@pytest.mark.parametrize("module", ["velox_tpu_torch", "chip_smoke"])
+def test_import_pulls_in_no_jax(module):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(root=ROOT, module=module)],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_sources_name_no_jax_import():
+    import re
+
+    pattern = re.compile(r"^\s*(import jax|from jax|import velox_tpu\b|from velox_tpu\b)")
+    offenders = []
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, "velox_tpu_torch")):
+        paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            for i, line in enumerate(fh, 1):
+                if pattern.match(line):
+                    offenders.append(f"{path}:{i}: {line.strip()}")
+    assert not offenders, offenders
+
+
+def _tiny_plan():
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.testing import table_from_numpy
+
+    table = table_from_numpy(
+        ["k", "v"], ["BIGINT", "BIGINT"],
+        {"k": np.arange(8) % 2, "v": np.arange(8)},
+    )
+    return table, PlanBuilder().table_scan(table).aggregation(["k"], ["sum(v) as s"]).build()
+
+
+def test_default_device_raises_without_cuda():
+    from velox_tpu_torch.device import resolve_device
+    from velox_tpu_torch.exec.runner import LocalExecutor, run_plan
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default device exists")
+    table, plan = _tiny_plan()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalExecutor(plan, device=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_plan(plan)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        table.tile(0, 1024)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        table.device_tiles(1024)
+
+
+def test_explicit_cpu_runs():
+    from velox_tpu_torch.exec.runner import run_plan
+
+    _, plan = _tiny_plan()
+    got = run_plan(plan, device="cpu").to_pandas().sort_values("k")
+    assert list(got["s"]) == [0 + 2 + 4 + 6, 1 + 3 + 5 + 7]
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, cwd=ROOT, timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_wrappers_raise_on_a_device_they_do_not_serve():
+    """A tensor that is neither on the CPU nor on CUDA is refused; nothing
+    routes it to the plain version."""
+    from velox_tpu_torch.ops.group_piece import grouped_piece_sums, plan_spec
+    from velox_tpu_torch.ops.group_sum import grouped_int64_sums
+    from velox_tpu_torch.ops.selective_sum import selective_sum
+
+    meta = torch.device("meta")
+    gid = torch.zeros(1024, dtype=torch.int8, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        grouped_piece_sums([], gid, [plan_spec([])], 4)
+    v = torch.zeros(1024, dtype=torch.int64, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        selective_sum(v, [], [])
+    with pytest.raises(ValueError, match="unsupported device"):
+        grouped_int64_sums(
+            [v], torch.zeros(1024, dtype=torch.int32, device=meta),
+            torch.zeros(1024, dtype=torch.bool, device=meta), 4,
+        )

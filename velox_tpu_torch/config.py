@@ -1,0 +1,26 @@
+"""Query configuration.
+
+Counterpart of the JAX package's ``config.py``, with the fields this package's
+executor reads so far.  Reference: velox/core/QueryConfig.h:44.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class QueryConfig:
+    """Per-query options (reference: core::QueryConfig)."""
+
+    # Device-memory budget for one query's device-resident state (scan tiles);
+    # None = untracked.  Reference: QueryConfig kQueryMaxMemoryPerNode +
+    # MemoryArbitrator.h:43.
+    query_memory_limit_bytes: Optional[int] = None
+
+    def copy(self, **overrides) -> "QueryConfig":
+        return dataclasses.replace(self, **overrides)
+
+
+DEFAULT_CONFIG = QueryConfig()

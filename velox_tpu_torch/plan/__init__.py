@@ -1,0 +1,29 @@
+from .builder import PlanBuilder
+from .nodes import (
+    AggregationNode,
+    AggregationStep,
+    FilterNode,
+    LimitNode,
+    OrderByNode,
+    PlanNode,
+    ProjectNode,
+    SortKey,
+    TableScanNode,
+    TopNNode,
+    ValuesNode,
+)
+
+__all__ = [
+    "AggregationNode",
+    "AggregationStep",
+    "FilterNode",
+    "LimitNode",
+    "OrderByNode",
+    "PlanBuilder",
+    "PlanNode",
+    "ProjectNode",
+    "SortKey",
+    "TableScanNode",
+    "TopNNode",
+    "ValuesNode",
+]

@@ -1,0 +1,109 @@
+"""Test utilities: tables from plain host data + plan-result assertions.
+
+Counterpart of the JAX package's ``testing``.  Reference:
+velox/exec/tests/utils/QueryAssertions.h:37 (assertQuery against an oracle) —
+here the oracle is a pandas DataFrame the caller computes independently.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+from ..dtypes import DataType, RowType, TypeKind, decimal
+from ..io.table import Table
+from ..vector.string_table import StringTable
+
+__all__ = ["assert_plan_result", "parse_type", "run_at_tile_sizes", "table_from_numpy"]
+
+
+_DECIMAL_RE = re.compile(r"^DECIMAL\((\d+),\s*(\d+)\)$", re.IGNORECASE)
+
+
+def parse_type(text: str) -> DataType:
+    """The scalar DataType named by ``str(DataType)`` ('BIGINT', 'DATE',
+    'DECIMAL(12,2)', ...)."""
+    m = _DECIMAL_RE.match(text.strip())
+    if m:
+        return decimal(int(m.group(1)), int(m.group(2)))
+    return DataType(TypeKind(text.strip().upper()))
+
+
+def table_from_numpy(
+    names: Sequence[str],
+    type_strings: Sequence[str],
+    columns: Dict[str, np.ndarray],
+    string_values: Optional[Dict[str, Sequence]] = None,
+    validities: Optional[Dict[str, np.ndarray]] = None,
+) -> Table:
+    """Build a Table from plain numpy / Python values.
+
+    ``type_strings``: one SQL type string per column (``str(DataType)``
+    round-trips).  ``columns``: arrays already in the device representation
+    (unscaled decimals, int32 days, int32 string codes).  ``string_values``:
+    per string column, the dictionary's values in code order.  This is how
+    data generated elsewhere (another engine, a file) is carried across
+    without sharing any code."""
+    schema = RowType(list(names), [parse_type(t) for t in type_strings])
+    tables = {}
+    for name, values in (string_values or {}).items():
+        values = list(values)
+        if not values or values[0] != "" or len(set(values)) != len(values):
+            raise ValueError(
+                f"string_values[{name!r}] must list distinct values in code "
+                "order, starting with the empty string"
+            )
+        tables[name] = StringTable.from_values(values)
+    return Table(
+        schema,
+        {n: np.asarray(columns[n]) for n in names},
+        tables,
+        {n: np.asarray(v, dtype=bool) for n, v in (validities or {}).items()},
+    )
+
+
+def assert_plan_result(
+    plan,
+    expected,
+    sort_by: Optional[Sequence[str]] = None,
+    tile_rows: int = 1 << 20,
+    check_dtype: bool = False,
+    device=None,
+):
+    """Execute a plan and compare against a pandas oracle (assertQuery).
+
+    ``sort_by``: columns to sort both sides by first (unordered queries).
+    Returns the engine DataFrame for further checks."""
+    import pandas as pd
+
+    from ..exec.runner import LocalExecutor
+
+    got = LocalExecutor(plan, tile_rows=tile_rows, device=device).run().to_pandas()
+    expect = expected.copy()
+    if sort_by:
+        got = got.sort_values(list(sort_by)).reset_index(drop=True)
+        expect = expect.sort_values(list(sort_by)).reset_index(drop=True)
+    pd.testing.assert_frame_equal(
+        got.reset_index(drop=True),
+        expect.reset_index(drop=True),
+        check_dtype=check_dtype,
+    )
+    return got
+
+
+def run_at_tile_sizes(plan, tile_sizes=(1 << 10, 1 << 14, 1 << 20), device=None):
+    """Execute a plan at several tile sizes and assert identical results —
+    the tiling-invariance discipline every exact operator must satisfy."""
+    import pandas as pd
+
+    from ..exec.runner import LocalExecutor
+
+    results = [
+        LocalExecutor(plan, tile_rows=t, device=device).run().to_pandas()
+        for t in tile_sizes
+    ]
+    for other in results[1:]:
+        pd.testing.assert_frame_equal(results[0], other)
+    return results[0]

@@ -1,0 +1,34 @@
+"""Device->host transfer discipline.
+
+Counterpart of the JAX package's ``utils/transfer.py``.  Every host read of the
+engine goes through here, so that a result is fetched once, at the end, and
+result-sized: nothing is read back per tile on the aggregation paths (a
+device->host copy synchronises the stream).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def fetch_tree(tree):
+    """Fetch every tensor in a nested tuple/list/dict as a numpy array; other
+    leaves pass through.  The first copy waits for the stream; the rest are
+    already complete."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple):
+        return tuple(fetch_tree(t) for t in tree)
+    if isinstance(tree, list):
+        return [fetch_tree(t) for t in tree]
+    if isinstance(tree, dict):
+        return {k: fetch_tree(v) for k, v in tree.items()}
+    return tree
+
+
+def bucket_of(n: int) -> int:
+    """The next power of two >= n (result-prefix buckets)."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return b

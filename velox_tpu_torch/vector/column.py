@@ -1,0 +1,416 @@
+"""Columnar batch layer on torch tensors.
+
+Counterpart of the JAX package's ``vector/column.py``.  Reference:
+velox/vector/BaseVector.h:69 (BaseVector + Flat/Constant/Dictionary encodings,
+VectorEncoding.h:32), velox/vector/DecodedVector.h:76,
+velox/vector/SelectivityVector.h:39.
+
+* A ``Column`` is a struct of fixed-capacity tensors; a ``Batch`` holds the
+  columns of one tile.  The row count rides along as a 0-d int32 tensor
+  (``Batch.length``) so no operator has to read it back to the host; rows
+  beyond it are padding.
+* The reference's SelectivityVector is ``Batch.selection``: a boolean mask over
+  the capacity.  Filters narrow the mask; nothing is compacted on this path.
+* Encodings FLAT / CONSTANT / DICTIONARY are kept because they are algebraic
+  (eval-on-base + gather).  SEQUENCE and BIAS are named but not implemented
+  yet: their constructors raise ``NotImplementedError``.
+* ``decode`` is the DecodedVector analog: collapse any encoding to
+  (values, validity).  Narrow integer uploads widen here.
+* Strings on device are always int32 dictionary codes (see string_table.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from enum import Enum
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..dtypes import DataType, RowType, TypeKind
+from .string_table import StringTable
+
+
+class Encoding(str, Enum):
+    FLAT = "FLAT"
+    CONSTANT = "CONSTANT"
+    DICTIONARY = "DICTIONARY"
+    SEQUENCE = "SEQUENCE"  # not implemented in this package yet
+    BIAS = "BIAS"  # not implemented in this package yet
+
+
+def _take_clamped(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """values[indices] along dim 0 with out-of-range indices clamped to the
+    ends (the JAX package's ``jnp.take(..., mode="clip")``)."""
+    idx = indices.to(torch.int64).clamp(0, max(values.shape[0] - 1, 0))
+    return values.index_select(0, idx)
+
+
+@dataclasses.dataclass
+class Column:
+    """One column of a Batch.
+
+    data:
+      FLAT        -> values, shape [capacity]
+      CONSTANT    -> scalar value, shape ()
+      DICTIONARY  -> int32 indices into ``base``, shape [capacity]
+    validity: optional bool tensor (True = valid / not NULL), shaped like data.
+    base: the dictionary's base column (FLAT), present iff DICTIONARY.
+    """
+
+    data: torch.Tensor
+    validity: Optional[torch.Tensor]
+    base: Optional["Column"]
+    dtype: DataType
+    encoding: Encoding
+    strings: Optional[StringTable] = None
+
+    # ---- constructors ----------------------------------------------------
+    @staticmethod
+    def flat(
+        data: torch.Tensor,
+        dtype: DataType,
+        validity: Optional[torch.Tensor] = None,
+        strings: Optional[StringTable] = None,
+    ) -> "Column":
+        return Column(data, validity, None, dtype, Encoding.FLAT, strings)
+
+    @staticmethod
+    def constant(
+        value,
+        dtype: DataType,
+        is_null: bool = False,
+        strings: Optional[StringTable] = None,
+        device=None,
+    ) -> "Column":
+        data = torch.tensor(value, dtype=dtype.device_dtype, device=device)
+        validity = torch.tensor(False, device=device) if is_null else None
+        return Column(data, validity, None, dtype, Encoding.CONSTANT, strings)
+
+    @staticmethod
+    def dictionary(
+        indices: torch.Tensor,
+        base: "Column",
+        validity: Optional[torch.Tensor] = None,
+    ) -> "Column":
+        assert base.encoding == Encoding.FLAT, "dictionary base must be flat"
+        return Column(
+            indices, validity, base, base.dtype, Encoding.DICTIONARY, base.strings
+        )
+
+    @staticmethod
+    def sequence(run_values: "Column", run_lengths, capacity: int) -> "Column":
+        raise NotImplementedError(
+            "SEQUENCE (run-length) columns are not ported yet"
+        )
+
+    @staticmethod
+    def bias(bias_value, deltas, dtype: DataType, validity=None) -> "Column":
+        raise NotImplementedError("BIAS columns are not ported yet")
+
+    # ---- shape -----------------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        if self.encoding == Encoding.CONSTANT:
+            raise ValueError("constant column has no capacity; use batch capacity")
+        return self.data.shape[0]
+
+    @property
+    def is_constant(self) -> bool:
+        return self.encoding == Encoding.CONSTANT
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def to(self, device, non_blocking: bool = False) -> "Column":
+        """This column with every tensor moved to ``device``."""
+        return dataclasses.replace(
+            self,
+            data=self.data.to(device, non_blocking=non_blocking),
+            validity=None
+            if self.validity is None
+            else self.validity.to(device, non_blocking=non_blocking),
+            base=None
+            if self.base is None
+            else self.base.to(device, non_blocking=non_blocking),
+        )
+
+    # ---- DecodedVector analog -------------------------------------------
+    def decode(self, capacity: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Collapse any encoding stack to (flat values[capacity], validity|None).
+
+        Reference: velox/vector/DecodedVector.h:76.
+        """
+        if self.encoding == Encoding.FLAT:
+            return self._widen(self.data), self.validity
+        if self.encoding == Encoding.CONSTANT:
+            values = self._widen(self.data).expand((capacity,) + self.data.shape[1:])
+            if self.validity is None:
+                return values, None
+            return values, self.validity.expand((capacity,))
+        if self.encoding == Encoding.DICTIONARY:
+            base_values, base_validity = self.base.data, self.base.validity
+            values = self._widen(_take_clamped(base_values, self.data))
+            validity = self.validity
+            if base_validity is not None:
+                inner = _take_clamped(base_validity, self.data)
+                validity = inner if validity is None else (validity & inner)
+            return values, validity
+        raise NotImplementedError(f"{self.encoding.value} columns are not ported yet")
+
+    def _widen(self, values: torch.Tensor) -> torch.Tensor:
+        """Narrow-on-the-wire columns (int8/16/32 uploads of wider integer
+        data, Table.tile) widen at first decode."""
+        if self.dtype.is_complex:
+            return values
+        want = self.dtype.device_dtype
+        if values.dtype != want and not self.dtype.is_string:
+            return values.to(want)
+        return values
+
+    def values(self, capacity: int) -> torch.Tensor:
+        return self.decode(capacity)[0]
+
+    def validity_or_true(self, capacity: int) -> torch.Tensor:
+        _, v = self.decode(capacity)
+        if v is None:
+            return torch.ones((capacity,), dtype=torch.bool, device=self.device)
+        return v
+
+    # ---- transforms ------------------------------------------------------
+    def gather(self, indices: torch.Tensor) -> "Column":
+        """Row-reordering gather; result is FLAT with the indices' length."""
+        if self.dtype.is_complex:
+            raise NotImplementedError("complex-typed columns are not ported yet")
+        if self.encoding == Encoding.CONSTANT:
+            cap = indices.shape[0]
+            values, validity = self.decode(cap)
+            return Column.flat(values, self.dtype, validity, self.strings)
+        validity = (
+            None
+            if self.validity is None
+            else _take_clamped(self.validity, indices)
+        )
+        if self.encoding == Encoding.DICTIONARY:
+            # Compose index arrays instead of materializing the gather.
+            new_idx = _take_clamped(self.data, indices)
+            return Column.dictionary(new_idx, self.base, validity)
+        if self.encoding != Encoding.FLAT:
+            raise NotImplementedError(
+                f"{self.encoding.value} columns are not ported yet"
+            )
+        data = _take_clamped(self.data, indices)
+        return Column.flat(data, self.dtype, validity, self.strings)
+
+    def flatten(self, capacity: int) -> "Column":
+        values, validity = self.decode(capacity)
+        return Column.flat(values, self.dtype, validity, self.strings)
+
+    # ---- host interop ----------------------------------------------------
+    @staticmethod
+    def from_numpy(
+        arr: np.ndarray,
+        dtype: DataType,
+        validity: Optional[np.ndarray] = None,
+        strings: Optional[StringTable] = None,
+        device=None,
+    ) -> "Column":
+        """Build a FLAT column from host data.  ``device`` None keeps the
+        tensors on the host (they share memory with ``arr`` where possible)."""
+        if dtype.is_string and arr.dtype.kind in ("U", "S", "O"):
+            table = strings if strings is not None else StringTable()
+            # VARBINARY values are bytes and must round-trip as bytes
+            codes = table.intern_all(
+                ["" if v is None else (v if isinstance(v, bytes) else str(v))
+                 for v in arr]
+            )
+            arr, strings = codes, table
+        np_arr = np.asarray(arr)
+        want = dtype.numpy_dtype
+        if not (
+            not dtype.is_string
+            and np_arr.dtype.kind in ("i", "u", "b")
+            and want.kind == "i"
+            and np_arr.itemsize <= want.itemsize
+        ) and np_arr.dtype != want:
+            # anything but a narrow integer upload converts on the host;
+            # narrow integers ship as they are and decode() widens them
+            np_arr = np_arr.astype(want, copy=False)
+        data = _host_tensor(np_arr)
+        v = None
+        if validity is not None:
+            v = _host_tensor(np.asarray(validity, dtype=np.bool_))
+        col = Column.flat(data, dtype, v, strings)
+        return col if device is None else col.to(device)
+
+    def to_numpy(self, length: int, decode_strings: bool = True):
+        """Materialize the first ``length`` rows on the host.
+
+        Returns (values, validity_or_None); strings decode to object arrays.
+        """
+        cap = length if self.is_constant else self.capacity
+        values, validity = self.decode(cap)
+        values = values.cpu().numpy()[:length]
+        validity_np = None if validity is None else validity.cpu().numpy()[:length]
+        if self.dtype.is_string and self.strings is not None and decode_strings:
+            values = self.strings.decode(values)
+        if self.dtype.kind == TypeKind.DECIMAL:
+            values = values.astype(np.float64) / (10.0 ** self.dtype.scale)
+        return values, validity_np
+
+
+def _host_tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr)
+
+
+@dataclasses.dataclass
+class Batch:
+    """A fixed-capacity batch of rows: the reference's RowVector + SelectivityVector.
+
+    ``length`` (0-d int32 tensor) is the number of materialized rows;
+    ``selection`` optionally masks a subset of them as live.  Rows in
+    [length, capacity) are padding and always dead.
+    """
+
+    columns: Tuple[Column, ...]
+    length: torch.Tensor
+    selection: Optional[torch.Tensor]
+    schema: RowType
+    capacity: int
+    # global row index of this tile's first row
+    row_offset: Optional[torch.Tensor] = None
+
+    # ---- constructors ----------------------------------------------------
+    @staticmethod
+    def make(
+        schema: RowType,
+        columns: Sequence[Column],
+        length: Union[int, torch.Tensor],
+        selection: Optional[torch.Tensor] = None,
+        capacity: Optional[int] = None,
+        row_offset: Union[int, torch.Tensor, None] = None,
+        device=None,
+    ) -> "Batch":
+        if capacity is None:
+            capacity = next(
+                c.capacity for c in columns if c.encoding != Encoding.CONSTANT
+            )
+        if device is None:
+            device = next(
+                (c.device for c in columns), torch.device("cpu")
+            )
+        return Batch(
+            tuple(columns),
+            torch.as_tensor(length, dtype=torch.int32, device=device),
+            selection,
+            schema,
+            capacity,
+            None
+            if row_offset is None
+            else torch.as_tensor(row_offset, dtype=torch.int64, device=device),
+        )
+
+    @staticmethod
+    def from_numpy(
+        schema: RowType,
+        arrays: Sequence[np.ndarray],
+        validities: Optional[Sequence[Optional[np.ndarray]]] = None,
+        string_tables: Optional[Sequence[Optional[StringTable]]] = None,
+        capacity: Optional[int] = None,
+        device=None,
+    ) -> "Batch":
+        n = len(arrays[0]) if arrays else 0
+        cap = capacity if capacity is not None else max(n, 1)
+        cols = []
+        for i, (name, dtype) in enumerate(zip(schema.names, schema.types)):
+            arr = np.asarray(arrays[i])
+            validity = validities[i] if validities else None
+            table = string_tables[i] if string_tables else None
+            if len(arr) < cap:
+                pad = cap - len(arr)
+                if arr.dtype.kind in ("U", "S", "O"):
+                    arr = np.concatenate([arr, np.asarray([""] * pad, dtype=object)])
+                else:
+                    arr = np.concatenate([arr, np.zeros(pad, dtype=arr.dtype)])
+                if validity is not None:
+                    validity = np.concatenate([validity, np.zeros(pad, dtype=bool)])
+            cols.append(Column.from_numpy(arr, dtype, validity, table, device))
+        return Batch.make(schema, cols, n, capacity=cap, device=device)
+
+    # ---- access ----------------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self.length.device
+
+    def to(self, device, non_blocking: bool = False) -> "Batch":
+        """This batch with every tensor moved to ``device``."""
+        mv = lambda t: None if t is None else t.to(device, non_blocking=non_blocking)  # noqa: E731
+        return dataclasses.replace(
+            self,
+            columns=tuple(c.to(device, non_blocking) for c in self.columns),
+            length=mv(self.length),
+            selection=mv(self.selection),
+            row_offset=mv(self.row_offset),
+        )
+
+    def column(self, name: str) -> Column:
+        return self.columns[self.schema.index_of(name)]
+
+    def active_mask(self) -> torch.Tensor:
+        """bool[capacity]: rows that are materialized AND selected."""
+        mask = (
+            torch.arange(self.capacity, dtype=torch.int32, device=self.device)
+            < self.length
+        )
+        if self.selection is not None:
+            mask = mask & self.selection
+        return mask
+
+    def num_active(self) -> torch.Tensor:
+        if self.selection is None:
+            return self.length
+        return self.active_mask().sum().to(torch.int32)
+
+    # ---- transforms ------------------------------------------------------
+    def with_selection(self, selection: torch.Tensor) -> "Batch":
+        if self.selection is not None:
+            selection = selection & self.selection
+        return dataclasses.replace(self, selection=selection)
+
+    def project(self, names: Sequence[str], schema: Optional[RowType] = None) -> "Batch":
+        cols = tuple(self.column(n) for n in names)
+        schema = schema or RowType(names, [self.schema.type_of(n) for n in names])
+        return dataclasses.replace(self, columns=cols, schema=schema)
+
+    def with_columns(self, schema: RowType, columns: Sequence[Column]) -> "Batch":
+        return dataclasses.replace(self, columns=tuple(columns), schema=schema)
+
+    # ---- host interop ----------------------------------------------------
+    def to_pydict(self, decode_strings: bool = True) -> dict:
+        """Materialize live rows host-side as {name: numpy array} (None for NULL)."""
+        n = int(self.length)
+        if self.selection is not None:
+            keep = self.active_mask().cpu().numpy()
+        else:
+            keep = None
+        out = {}
+        for name, col in zip(self.schema.names, self.columns):
+            values, validity = col.to_numpy(n, decode_strings=decode_strings)
+            if keep is not None:
+                values = values[keep[:n]]
+                validity = None if validity is None else validity[keep[:n]]
+            if validity is not None and not validity.all():
+                values = values.astype(object)
+                values[~validity] = None
+            out[name] = values
+        return out
+
+    def to_pandas(self, decode_strings: bool = True):
+        import pandas as pd
+
+        return pd.DataFrame(self.to_pydict(decode_strings=decode_strings))
