@@ -13,7 +13,12 @@ data is the same in every run.  The script
    queries give it (one tile of SF-``sf`` ``lineitem``), by exact equality
    (the sums are integer; addition wraps and is associative), and times
    kernel, plain version and, where one PyTorch call computes the same, that
-   call, with CUDA events (median of ``--runs`` after a warm-up);
+   call, with CUDA events (median of ``--runs`` after a warm-up, the launches
+   queued behind a short device-side sleep so that no host time is counted);
+   then runs the edge cases of the two grouped sums (ragged lengths, unaligned
+   slices, all rows dead, 1 and 64 groups, the table limit, every number of
+   table copies) against the plain versions, and times both kernels on one
+   tile with 1, 4, 12 and 64 live groups;
 4. sets every kernel's launch count to 0 and drives the main path once:
    TPC-H Q6 and Q1 at SF ``sf`` through ``LocalExecutor`` over device-resident
    tiles, row-exact against the numpy oracle, and the two ops the executor
@@ -27,10 +32,12 @@ data is the same in every run.  The script
 
 Every phase prints one JSON line; any failure ends the run with a traceback
 and a non-zero exit code.  ``bound_ms`` is bytes moved (each input read once,
-each output written once) over the published device-memory rate of the H100
-SXM, 3.35 TB/s, or integer operations over 67 Tops/s (the published
-non-tensor-core float32 rate, taken as the integer ALU rate), whichever is
-larger.
+each output written once; of selective_sum's value column only the 32-byte
+sectors that hold a passing row, since the others are never asked for) over
+the published device-memory rate of the H100 SXM, 3.35 TB/s, or integer
+operations over 67 Tops/s (the published non-tensor-core float32 rate, taken
+as the integer ALU rate), whichever is larger.  ``kernel_study.py`` beside this
+script holds the longer measurements (design variants, cost split, SASS).
 """
 
 from __future__ import annotations
@@ -52,7 +59,12 @@ def say(phase: str, **fields) -> None:
 
 
 def median_ms(fn, runs: int) -> float:
-    """Median CUDA-event time of ``fn`` in ms over ``runs``, after one warm-up."""
+    """Median CUDA-event time of ``fn`` in ms over ``runs``, after one warm-up.
+    Each run is queued behind a device-side sleep of about half a millisecond,
+    so the host is ahead of the device and only device time lies between the
+    two events.  The sleep is ``torch.cuda._sleep``, a private call that counts
+    clock cycles (so its length follows the clock; only that it outlasts the
+    host's enqueueing matters); a torch without it raises here."""
     import torch
 
     fn()
@@ -61,6 +73,7 @@ def median_ms(fn, runs: int) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
@@ -193,7 +206,16 @@ def check_kernels(ex1, tile1, tile6, runs: int):
     err = max_abs_err(got, want)
     assert err == 0 and int(want[2]) > 0, ("selective_sum disagrees", got, want)
     n = values.shape[0]
-    b_ms, b_by = bound(tensor_bytes(values, *filters) + 24, 9 * n)
+    # the kernel reads a value only where the row passes, so of the value
+    # column this run's data needs the 32-byte sectors that hold a passing row
+    passing = torch.ones((n,), dtype=torch.bool, device=DEVICE)
+    for f, (lo, hi) in zip(filters, bounds):
+        passing &= (f >= lo) & (f <= hi)
+    whole = n - n % 4
+    value_bytes = 32 * (int(passing[:whole].view(-1, 4).any(dim=1).sum())
+                        + int(passing[whole:].any()))
+    k1_bytes = tensor_bytes(*filters) + value_bytes + 24
+    b_ms, b_by = bound(k1_bytes, 9 * n)
     records.append(
         dict(
             name="selective_sum", route="cuda",
@@ -203,10 +225,11 @@ def check_kernels(ex1, tile1, tile6, runs: int):
             ms=median_ms(lambda: selective_sum(values, filters, bounds), runs),
             plain_ms=median_ms(lambda: selective_sum_plain(values, filters, bounds), runs),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            rows=n, bytes=tensor_bytes(values, *filters) + 24,
+            rows=n, bytes=k1_bytes, value_bytes_needed=value_bytes,
+            geometry=None,  # grid-stride, no staged geometry
         )
     )
-    del values, filters
+    del values, filters, passing
 
     # K2 grouped_piece_sums at Q1's shape
     cols, gid_live, plans, groups, mask, gids = q1_piece_inputs(ex1, tile1)
@@ -223,7 +246,7 @@ def check_kernels(ex1, tile1, tile6, runs: int):
     records.append(
         dict(
             name="grouped_piece_sums", route="cuda",
-            source="velox_tpu_torch/csrc/kernels.cu",
+            source="velox_tpu_torch/csrc/grouped_piece_sums.cu",
             replaces="velox_tpu/ops/pallas_group_piece.py:235",
             max_abs_err=err,
             ms=median_ms(lambda: grouped_piece_sums(cols, gid_live, plans, groups), runs),
@@ -233,6 +256,7 @@ def check_kernels(ex1, tile1, tile6, runs: int):
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             rows=n, bytes=moved, specs=len(plans), groups=groups,
             column_dtypes=[str(c.dtype) for c in cols],
+            geometry=grouped_piece_sums.last_geometry.summary(),
         )
     )
 
@@ -256,7 +280,7 @@ def check_kernels(ex1, tile1, tile6, runs: int):
     records.append(
         dict(
             name="grouped_int64_sums", route="cuda",
-            source="velox_tpu_torch/csrc/kernels.cu",
+            source="velox_tpu_torch/csrc/grouped_int64_sums.cu",
             replaces="velox_tpu/ops/pallas_group_sum.py:139",
             max_abs_err=err,
             ms=median_ms(lambda: grouped_int64_sums(wide, gids, mask, groups), runs),
@@ -265,9 +289,88 @@ def check_kernels(ex1, tile1, tile6, runs: int):
             ),
             bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lib, runs),
             rows=n, bytes=moved, columns=len(wide), groups=groups,
+            geometry=grouped_int64_sums.last_geometry.summary(),
         )
     )
+    for r in records:
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
     return records
+
+
+def equal_bits(got, want) -> bool:
+    import torch
+
+    return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def check_edges():
+    """The edge cases of the two grouped sums, kernel against plain version by
+    exact equality; returns per case what geometry it ran with."""
+    import torch
+
+    from velox_tpu_torch.ops.group_piece import grouped_piece_sums, grouped_piece_sums_plain
+    from velox_tpu_torch.ops.group_sum import grouped_int64_sums, grouped_int64_sums_plain
+    from velox_tpu_torch.testing import kernel_cases
+
+    report = {}
+    suites = (
+        ("grouped_piece_sums", kernel_cases.piece_cases, kernel_cases.piece_inputs,
+         grouped_piece_sums, grouped_piece_sums_plain),
+        ("grouped_int64_sums", kernel_cases.group_sum_cases, kernel_cases.group_sum_inputs,
+         grouped_int64_sums, grouped_int64_sums_plain),
+    )
+    for kernel, cases, inputs, fn, plain in suites:
+        ran = []
+        for case in cases():
+            args = inputs(case, DEVICE)
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            assert equal_bits(got, want), (kernel, case["name"], got, want)
+            g = fn.last_geometry
+            assert case["copies"] in (None, g.lane_copies), (kernel, case["name"], g)
+            ran.append([case["name"], g.lane_copies, g.stages, g.chunk_rows,
+                        g.head, g.body_rows, g.tail, g.smem_bytes])
+        report[kernel] = ran
+    return report
+
+
+def live_group_inputs(n, live_groups: int, dtype):
+    """Synthetic group ids: ``live_groups`` groups, uniform, every row live."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(live_groups)
+    return torch.from_numpy(rng.integers(0, live_groups, n).astype(dtype)).to(DEVICE)
+
+
+def contention_sweep(ex1, tile1, runs: int):
+    """Kernel ms of the two grouped sums on one tile against the number of
+    live groups (1, 4, 12, 64; uniform synthetic group ids)."""
+    import numpy as np
+    import torch
+
+    from velox_tpu_torch.ops.group_piece import grouped_piece_sums, grouped_piece_sums_plain
+    from velox_tpu_torch.ops.group_sum import grouped_int64_sums, grouped_int64_sums_plain
+
+    cols, gid_live, plans, _, _, _ = q1_piece_inputs(ex1, tile1)
+    wide = q1_group_sum_inputs(tile1)
+    n = gid_live.shape[0]
+    mask = torch.ones((n,), dtype=torch.bool, device=DEVICE)
+    out = {"rows": n, "grouped_piece_sums": {}, "grouped_int64_sums": {}}
+    for live in (1, 4, 12, 64):
+        groups = max(live, 12)
+        gid8 = live_group_inputs(n, live, np.int8)
+        assert equal_bits(grouped_piece_sums(cols, gid8, plans, groups),
+                          grouped_piece_sums_plain(cols, gid8, plans, groups))
+        out["grouped_piece_sums"][str(live)] = median_ms(
+            lambda: grouped_piece_sums(cols, gid8, plans, groups), runs)
+        gid32 = gid8.to(torch.int32)
+        assert equal_bits(grouped_int64_sums(wide, gid32, mask, groups),
+                          grouped_int64_sums_plain(wide, gid32, mask, groups))
+        out["grouped_int64_sums"][str(live)] = median_ms(
+            lambda: grouped_int64_sums(wide, gid32, mask, groups), runs)
+    return out
 
 
 def drive_ops(tiles6, ex1, tiles1, q1_result, q6_exact: int):
@@ -410,6 +513,9 @@ def main() -> int:
     for r in records:
         r["bound_ms_at_measured_bandwidth"] = r["bytes"] / bw * 1e3
     say("kernels", kernel_names=[r["name"] for r in records], records=records)
+    say("edges", cases="[name, R, stages, chunk_rows, head, body_rows, tail, smem_bytes]",
+        **check_edges())
+    say("live_groups", **contention_sweep(ex1, tiles1[0], args.runs))
 
     # ---- the main path, with the counts set to 0 just before it
     for w in wrappers.values():
@@ -442,7 +548,7 @@ def main() -> int:
             k2_launches_while_timing=k2, correct=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound", "geometry")
     for r in records:
         r["launches"] = launches[r["name"]]
     say("total", seconds=time.perf_counter() - t_begin)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from velox_tpu_torch.ops import group_piece, group_sum, selective_sum as sel
+from velox_tpu_torch.testing import kernel_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -81,6 +82,48 @@ def test_grouped_int64_sums_kernel(cuda, n, groups, ncols):
     assert group_sum.grouped_int64_sums.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+PIECE_CASES = list(kernel_cases.piece_cases())  # specs only; the data is made in the test
+SUM_CASES = list(kernel_cases.group_sum_cases())
+
+
+@pytest.mark.parametrize("case", PIECE_CASES, ids=[c["name"] for c in PIECE_CASES])
+def test_grouped_piece_sums_edge_case(cuda, case):
+    """Ragged lengths, unaligned slices, dead rows, 1 and 64 groups, the table
+    limit, both group-id types, every number of table copies: the cases
+    chip_smoke.py runs."""
+    args = kernel_cases.piece_inputs(case, cuda)
+    before = group_piece.grouped_piece_sums.launches
+    got = group_piece.grouped_piece_sums(*args)
+    want = group_piece.grouped_piece_sums_plain(*args)
+    torch.cuda.synchronize()
+    assert group_piece.grouped_piece_sums.launches == before + 1
+    geometry = group_piece.grouped_piece_sums.last_geometry
+    assert geometry.head + geometry.body_rows + geometry.tail == case["n"]
+    assert case["copies"] in (None, geometry.lane_copies)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", SUM_CASES, ids=[c["name"] for c in SUM_CASES])
+def test_grouped_int64_sums_edge_case(cuda, case):
+    args = kernel_cases.group_sum_inputs(case, cuda)
+    before = group_sum.grouped_int64_sums.launches
+    got = group_sum.grouped_int64_sums(*args)
+    want = group_sum.grouped_int64_sums_plain(*args)
+    torch.cuda.synchronize()
+    assert group_sum.grouped_int64_sums.launches == before + 1
+    assert case["copies"] in (None, group_sum.grouped_int64_sums.last_geometry.lane_copies)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_compiled_limits_are_the_planned_ones(cuda):
+    """grouped_common.cuh and ops/launch_geometry.py each hold the limits."""
+    from velox_tpu_torch.ops import cuda_build, launch_geometry
+
+    assert cuda_build.compiled_limits(cuda_build.library()) == launch_geometry.COMPILED_LIMITS
 
 
 def test_q1_on_the_card_takes_the_kernel(cuda):

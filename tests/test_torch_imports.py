@@ -27,7 +27,7 @@ print("BAD", bad)
 """
 
 
-@pytest.mark.parametrize("module", ["velox_tpu_torch", "chip_smoke"])
+@pytest.mark.parametrize("module", ["velox_tpu_torch", "chip_smoke", "kernel_study"])
 def test_import_pulls_in_no_jax(module):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -43,7 +43,7 @@ def test_sources_name_no_jax_import():
 
     pattern = re.compile(r"^\s*(import jax|from jax|import velox_tpu\b|from velox_tpu\b)")
     offenders = []
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_study.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "velox_tpu_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
     for path in paths:

@@ -20,11 +20,14 @@ import subprocess
 import time
 from typing import Optional
 
+from . import launch_geometry
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "--threads", "0",  # one compile job per source file, all started together
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -36,10 +39,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # name: argument types (every pointer and the stream are c_void_p)
     "velox_selective_sum": [_P, _P, _P, _P, _I, _L, _P, _I, _P],
-    "velox_grouped_piece_sums": [
-        _P, _P, _I, _P, _I, _L, _P, _I, _P, _P, _P, _I, _P, _I, _P,
-    ],
-    "velox_grouped_int64_sums": [_P, _I, _P, _P, _L, _I, _P, _I, _P],
+    "velox_grouped_piece_sums": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P],
+    "velox_grouped_int64_sums": [_P, _P, _I, _P, _I, _P, _P],
+    "velox_grouped_limits": [_P],
 }
 
 
@@ -110,8 +112,22 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        compiled = compiled_limits(lib)
+        if compiled != launch_geometry.COMPILED_LIMITS:
+            raise RuntimeError(
+                f"csrc/grouped_common.cuh was compiled with limits {compiled}, "
+                f"ops/launch_geometry.py plans with {launch_geometry.COMPILED_LIMITS}"
+            )
         _lib = lib
     return _lib
+
+
+def compiled_limits(lib: ctypes.CDLL) -> tuple:
+    """The limits the grouped-sum kernels were compiled with, in the order of
+    ``launch_geometry.COMPILED_LIMITS``."""
+    out = (ctypes.c_longlong * len(launch_geometry.COMPILED_LIMITS))()
+    check(lib.velox_grouped_limits(ctypes.addressof(out)), "grouped_limits")
+    return tuple(out)
 
 
 def check(code: int, what: str) -> None:
@@ -123,8 +139,14 @@ def check(code: int, what: str) -> None:
 def launch_params(device):
     """(max_blocks, stream) for a launch on ``device``: enough blocks to fill
     every SM several times over, and PyTorch's current stream."""
+    sm_count, stream = sm_count_and_stream(device)
+    return sm_count * 8, stream
+
+
+def sm_count_and_stream(device):
+    """(multiprocessor count, stream) for a launch whose geometry
+    ``launch_geometry.plan_launch`` chooses."""
     import torch
 
     props = torch.cuda.get_device_properties(device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    return props.multi_processor_count * 8, stream
+    return props.multi_processor_count, torch.cuda.current_stream(device).cuda_stream

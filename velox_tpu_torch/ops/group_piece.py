@@ -12,22 +12,38 @@ The columns are the raw scan columns at the width they were uploaded with
 (int8 / int16 / int32), so a whole array-mode aggregation reads each scanned
 byte once.
 
-The CUDA kernel (``csrc/kernels.cu`` ``grouped_piece_sums_kernel``) is bound by
-bytes: one read of every column and of the group ids.  Each thread loads its
-rows at their stored width, widens to int64 and forms every spec's product
-with native 64-bit multiply-add; a block adds into a shared-memory table
-``[G][n_specs]`` of 64-bit accumulators with shared atomics and publishes the
-table once with global atomics.  The specs travel as kernel parameters, so one
+The CUDA kernel (``csrc/grouped_piece_sums.cu``, shared parts in
+``csrc/grouped_common.cuh``) moves few bytes (TPC-H Q1: 9 a row), so it is
+built to spend as little as possible on each of them:
+
+* the aligned body of the rows reaches shared memory by bulk asynchronous
+  copies into a ring of stages, each input byte read from device memory once,
+  the next chunks in flight while this one is summed; an unaligned head and a
+  tail of fewer than 16 rows take a scalar path inside the same launch;
+* a thread holds 8 rows at a time and walks spec by spec, factor by factor,
+  rows innermost: the products are native 64-bit multiply-adds in registers,
+  and a column named by several factors is re-read from shared memory only;
+* the accumulator table ``[G][n_specs]`` is privatised: ``R`` copies with the
+  copy index fastest, one per lane at ``R = 32``, so that no two lanes of a
+  warp add to one address; the warps of a block share the copies and add with
+  native 32-bit shared atomics and a carry (the 64-bit shared ``atomicAdd`` is
+  a compare-and-swap loop on this card); at the table limit ``R`` is 1;
+* a spec whose factors begin with all the factors of the spec before it goes
+  on from that spec's product;
+* the block sums its copies and publishes each non-zero cell with one global
+  atomic into a ``[n_specs][G]`` output, which the wrapper returns unbound.
+
+``ops/launch_geometry.py plan_launch`` chooses all of that (row split, chunk
+rows, stages, ``R``, shared memory, blocks) from what the wrapper observes;
+the kernel only checks it.  The specs travel as kernel parameters, so one
 compiled kernel serves every plan.  The reference's piece machinery (chunked
 <= 17-bit pieces, hi/lo int32 scratch, one-hot matmuls) exists because its
 target had neither int64 nor cheap scatter; none of it is needed here, and
 ``plan_spec``'s chunking fields are only read by the planner's gates
-(``AggExecutor.try_enable_piece_path``).  With few live groups the shared
-atomics contend on a handful of addresses; a warp-level pre-aggregation is
-the next step for speed.
+(``AggExecutor.try_enable_piece_path``).
 
 Integer addition wraps and is associative, so kernel and plain version agree
-bit for bit whatever the order of the atomics.
+bit for bit whatever the order of the additions.
 """
 
 from __future__ import annotations
@@ -39,6 +55,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import launch_geometry
+
 PIECE_MAX = (1 << 17) - 1
 PIECE_MAX_PALLAS = (1 << 14) - 1  # the reference kernel's own piece bound
 _I32_MAX = (1 << 31) - 1
@@ -46,7 +64,7 @@ _I32_MAX = (1 << 31) - 1
 MAX_COLS = 16
 MAX_SPECS = 16
 MAX_FACTORS = 48
-MAX_TABLE_BYTES = 48 * 1024
+MAX_TABLE_BYTES = launch_geometry.MAX_TABLE_BYTES
 _WIDTHS = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8}
 
 
@@ -195,8 +213,18 @@ def grouped_piece_sums(
 
     lib = cuda_build.library()
     n_specs = len(plans)
+    arrays = (*cols, gid_live)  # the kernel takes the group ids last
+    sm_count, stream = cuda_build.sm_count_and_stream(gid_live.device)
+    geometry = launch_geometry.plan_launch(
+        gid_live.shape[0],
+        [_WIDTHS[t.dtype] for t in arrays],
+        [t.data_ptr() % 16 for t in arrays],
+        num_groups,
+        n_specs,
+        sm_count,
+    )
     out = torch.zeros(
-        (num_groups, n_specs), dtype=torch.int64, device=gid_live.device
+        (n_specs, num_groups), dtype=torch.int64, device=gid_live.device
     )
     spec_start, f_col, f_scale, f_offset = [0], [], [], []
     for p in plans:
@@ -206,21 +234,21 @@ def grouped_piece_sums(
             f_offset.append(f.offset)
         spec_start.append(len(f_col))
     nf = max(len(f_col), 1)
-    ncols = len(cols)
-    col_ptrs = (ctypes.c_void_p * max(ncols, 1))(*[c.data_ptr() for c in cols])
-    widths = (ctypes.c_int * max(ncols, 1))(*[_WIDTHS[c.dtype] for c in cols])
+    na = len(arrays)
+    ptrs = (ctypes.c_void_p * na)(*[t.data_ptr() for t in arrays])
+    widths = (ctypes.c_int * na)(*[_WIDTHS[t.dtype] for t in arrays])
+    stage_off = (ctypes.c_int * na)(*geometry.stage_offsets)
+    geom = (ctypes.c_longlong * len(geometry.as_c()))(*geometry.as_c())
     starts = (ctypes.c_int * (n_specs + 1))(*spec_start)
     fcols = (ctypes.c_int * nf)(*f_col)
     fscales = (ctypes.c_longlong * nf)(*f_scale)
     foffsets = (ctypes.c_longlong * nf)(*f_offset)
-    max_blocks, stream = cuda_build.launch_params(gid_live.device)
     code = lib.velox_grouped_piece_sums(
-        ctypes.addressof(col_ptrs),
+        ctypes.addressof(ptrs),
         ctypes.addressof(widths),
-        ncols,
-        gid_live.data_ptr(),
-        _WIDTHS[gid_live.dtype],
-        gid_live.shape[0],
+        ctypes.addressof(stage_off),
+        na,
+        ctypes.addressof(geom),
         ctypes.addressof(starts),
         n_specs,
         ctypes.addressof(fcols),
@@ -228,12 +256,13 @@ def grouped_piece_sums(
         ctypes.addressof(foffsets),
         num_groups,
         out.data_ptr(),
-        max_blocks,
         stream,
     )
     cuda_build.check(code, "grouped_piece_sums")
     grouped_piece_sums.launches += 1
-    return list(out.t().contiguous().unbind(0))
+    grouped_piece_sums.last_geometry = geometry
+    return list(out.unbind(0))
 
 
 grouped_piece_sums.launches = 0
+grouped_piece_sums.last_geometry = None  # the Geometry of the newest launch

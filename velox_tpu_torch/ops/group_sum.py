@@ -9,14 +9,21 @@ does this one: it is an op with its own entry point.
 What it computes: per group g, for every column, the sum over rows with
 ``mask`` set and ``gids == g``, wrapping mod 2**64.
 
-The CUDA kernel (``csrc/kernels.cu`` ``grouped_int64_sums_kernel``) is bound by
-bytes: one read of every column, of the group ids and of the mask.  A block
-adds its rows into a shared-memory table ``[G][ncols]`` of 64-bit accumulators
-with shared atomics and publishes it once with global atomics.  The
-reference's 7-bit limbs and one-hot matmuls stood in for missing int64 and
-scatter support and have no counterpart here.  A table over 48 KB of shared
-memory raises; there is no fallback.  Two's-complement addition wraps the same
-way in any order, so the result equals the plain version bit for bit.
+The CUDA kernel (``csrc/grouped_int64_sums.cu``, shared parts in
+``csrc/grouped_common.cuh``) is bound by bytes: one read of every column, of
+the group ids and of the mask, 8 bytes a column for one add.  The aligned body
+of the rows streams through a ring of shared-memory stages filled by bulk
+asynchronous copies, several chunks in flight per block, every byte read from
+device memory once; an unaligned head and a tail of fewer than 16 rows take a
+scalar path inside the same launch.  The accumulator table ``[G][ncols]`` is
+privatised as in ``ops/group_piece.py`` (``R`` copies, copy index fastest, one
+per lane, added to with native 32-bit shared atomics and a carry), summed by
+the block and published once into a ``[ncols][G]`` output.
+``ops/launch_geometry.py plan_launch`` chooses the geometry.  The reference's
+7-bit limbs and one-hot matmuls stood in for missing int64 and scatter support
+and have no counterpart here.  A table over 48 KB (one copy) raises; there is
+no fallback.  Two's-complement addition wraps the same way in any order, so
+the result equals the plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ from typing import Sequence, Tuple
 
 import torch
 
+from . import launch_geometry
+
 MAX_COLS = 16
-MAX_TABLE_BYTES = 48 * 1024
+MAX_TABLE_BYTES = launch_geometry.MAX_TABLE_BYTES
 
 
 def grouped_int64_sums_plain(
@@ -92,25 +101,36 @@ def grouped_int64_sums(
     from . import cuda_build
 
     lib = cuda_build.library()
-    out = torch.zeros(
-        (num_groups, len(cols)), dtype=torch.int64, device=gids.device
-    )
-    col_ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
-    max_blocks, stream = cuda_build.launch_params(gids.device)
-    code = lib.velox_grouped_int64_sums(
-        ctypes.addressof(col_ptrs),
-        len(cols),
-        gids.data_ptr(),
-        mask.data_ptr(),
+    arrays = (*cols, gids, mask)  # the order the kernel takes them in
+    sm_count, stream = cuda_build.sm_count_and_stream(gids.device)
+    geometry = launch_geometry.plan_launch(
         n,
+        [t.element_size() for t in arrays],
+        [t.data_ptr() % 16 for t in arrays],
+        num_groups,
+        len(cols),
+        sm_count,
+    )
+    out = torch.zeros(
+        (len(cols), num_groups), dtype=torch.int64, device=gids.device
+    )
+    ptrs = (ctypes.c_void_p * len(arrays))(*[t.data_ptr() for t in arrays])
+    stage_off = (ctypes.c_int * len(arrays))(*geometry.stage_offsets)
+    geom = (ctypes.c_longlong * len(geometry.as_c()))(*geometry.as_c())
+    code = lib.velox_grouped_int64_sums(
+        ctypes.addressof(ptrs),
+        ctypes.addressof(stage_off),
+        len(cols),
+        ctypes.addressof(geom),
         num_groups,
         out.data_ptr(),
-        max_blocks,
         stream,
     )
     cuda_build.check(code, "grouped_int64_sums")
     grouped_int64_sums.launches += 1
-    return tuple(out.t().contiguous().unbind(0))
+    grouped_int64_sums.last_geometry = geometry
+    return tuple(out.unbind(0))
 
 
 grouped_int64_sums.launches = 0
+grouped_int64_sums.last_geometry = None  # the Geometry of the newest launch
