@@ -27,7 +27,19 @@ data is the same in every run.  The script
    reads the counts and fails if any kernel was not launched;
 5. times Q6 and Q1 (median of ``--runs``), with the device-busy share from
    ``torch.profiler``;
-6. prints the ``{"kernels": [...]}`` line and, last,
+6. times the primitives the sort-mode paths are made of (``torch.sort``,
+   ``index_select`` through its permutation, ``cumsum``, ``cummax`` of 2^24
+   int64), each beside its byte bound;
+7. runs TPC-H Q3 and Q13 at SF ``sf`` through
+   ``LocalExecutor``: joins with a unique build side, sort-mode grouping with
+   the device-resident carry, the device TopN; row-exact against the numpy
+   oracle, then timed like Q6 and Q1.  ``engine_ms`` is one run of the probe
+   pipeline over device-resident tiles; the build sides run when the executor
+   is constructed and their time is printed as ``build_s``.  Q13 runs once
+   more with tiles of 2^22 rows, for its rows only, so that its build side's
+   carry merge is held against the oracle too.  These paths launch none of
+   the hand-written kernels (the JAX package has no Pallas kernel on them);
+8. prints the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line; any failure ends the run with a traceback
@@ -403,42 +415,130 @@ def drive_ops(tiles6, ex1, tiles1, q1_result, q6_exact: int):
     return count
 
 
-def prepare_query(num: int, sf: float, tile_rows: int):
-    """Generate the tables, plan the query and upload its tiles; returns
-    (executor, tiles, tables, report dict)."""
+def generate_tables(num: int, sf: float):
+    """(tables, seconds per table) of one query, each table timed alone."""
+    from velox_tpu_torch.connectors.tpch import load_table
+    from velox_tpu_torch.connectors.tpch.queries import QUERY_COLUMNS
+
+    tables, seconds = {}, {}
+    for name, cols in QUERY_COLUMNS[num].items():
+        t0 = time.perf_counter()
+        tables[name] = load_table(name, sf, cols)
+        seconds[name] = time.perf_counter() - t0
+    return tables, seconds
+
+
+def plan_query(num: int, tables, tile_rows: int, plan=None):
+    """Plan the query (or take ``plan``), construct its executor (which runs
+    the build sides) and upload the probe side's tiles; returns (executor,
+    tiles, plan, report dict)."""
     import torch
 
-    from velox_tpu_torch.connectors.tpch.plans import build_query, load_query_tables
+    from velox_tpu_torch.connectors.tpch.plans import build_query
     from velox_tpu_torch.exec.runner import LocalExecutor
 
     t0 = time.perf_counter()
-    tables = load_query_tables(num, sf)
-    gen_s = time.perf_counter() - t0
-    plan = build_query(num, tables)
+    if plan is None:
+        plan = build_query(num, tables)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     ex = LocalExecutor(plan, tile_rows=tile_rows)  # device=None: the CUDA device
+    torch.cuda.synchronize()
+    executor_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tiles = ex.device_tiles()
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
-    return ex, tiles, tables, dict(
-        rows=tables["lineitem"].num_rows, tiles=len(tiles), generate_s=gen_s,
-        upload_s=upload_s, kind=ex.kind, mode=ex.agg_exec.mode,
-        num_groups=ex.agg_exec.num_groups, piece_path=ex.use_piece,
-        accumulators=[len(a.acc_ops) for a in ex.agg_exec.aggs],
-        tile_bytes=ex.pool.reserved,
+    agg = ex.agg_exec
+    return ex, tiles, plan, dict(
+        rows=ex.source_table.num_rows,
+        rows_in={name: t.num_rows for name, t in tables.items()},
+        tiles=len(tiles), capacity=ex.capacity, plan_s=plan_s, executor_s=executor_s,
+        build_s=ex.build_seconds, upload_s=upload_s, kind=ex.kind, mode=agg.mode,
+        num_groups=agg.num_groups, piece_path=ex.use_piece,
+        presorted=bool(getattr(agg.grouping, "presorted", False)),
+        keys=[k.name for k in agg.key_infos],
+        accumulators=[len(a.acc_ops) for a in agg.aggs],
+        pool_reserved_bytes=ex.pool.reserved,
     )
 
 
-def check_result(num: int, ex, tiles, tables):
+def prepare_query(num: int, sf: float, tile_rows: int):
+    """Generate the tables, plan the query and upload its tiles; returns
+    (executor, tiles, tables, report dict)."""
+    tables, gen = generate_tables(num, sf)
+    ex, tiles, _, rep = plan_query(num, tables, tile_rows)
+    return ex, tiles, tables, dict(generate_s=gen, **rep)
+
+
+def check_result(num: int, ex, tiles, tables, want=None):
+    """One run held against the numpy oracle: integers, dates and strings
+    exactly, DOUBLE to rtol 1e-9.  Returns (result Table, engine frame,
+    oracle frame)."""
     import pandas as pd
 
-    from velox_tpu_torch.connectors.tpch.plans import oracle_result
+    from velox_tpu_torch.connectors.tpch.plans import ENGINE_OUTPUT_ORDER, oracle_result
 
     result = ex.run(prefetched_tiles=tiles)
     got = result.to_pandas().reset_index(drop=True)
-    want = oracle_result(num, tables).reset_index(drop=True)
+    if num in ENGINE_OUTPUT_ORDER:
+        got = got[ENGINE_OUTPUT_ORDER[num]]
+    if want is None:
+        want = oracle_result(num, tables).reset_index(drop=True)
     pd.testing.assert_frame_equal(got, want, check_dtype=False, rtol=1e-9)
-    return result, got
+    return result, got, want
+
+
+def join_steps(ex):
+    return [s[1] for s in ex.lin.steps if s[0] == "join"]
+
+
+def sort_mode_report(ex):
+    """What the last run of a sort-mode executor did."""
+    joins = join_steps(ex)
+    return dict(
+        carry_groups=ex.carry_groups, carry_overflowed=ex.carry_overflowed,
+        groups_out=ex.groups_out, pool_reserved_bytes=ex.pool.reserved,
+        pool_peak_bytes=ex.pool.peak,
+        joins=[dict(type=j.node.join_type.value, build_size=j.build_size,
+                    build_keys=j.n_valid_build_keys, key_range=j.key_range,
+                    packed_payload=j.bp_plan is not None,
+                    fused=j._fused_static(ex.capacity) is not None,
+                    device_build=j.build_valid is not None,
+                    state_bytes=j.state_bytes()) for j in joins],
+    )
+
+
+def time_primitives(runs: int, n: int = 1 << 24):
+    """Median CUDA-event ms of the torch calls the sort-mode paths are made
+    of, on ``n`` int64 values, each beside its byte bound (bytes read +
+    written over the published memory rate)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(24)
+    # packed words as the grouping sort sees them: 40 random key bits above
+    # the row id
+    bits = max(1, (n - 1).bit_length())
+    keys = (torch.randint(0, 1 << 40, (n,), generator=gen, device=DEVICE) << bits) | torch.arange(
+        n, dtype=torch.int64, device=DEVICE
+    )
+    operand = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen, device=DEVICE)
+    perm = torch.sort(keys, stable=True).indices
+    word = 8 * n
+    cases = {
+        # keys in, keys and int64 positions out
+        "sort_stable_int64": (lambda: torch.sort(keys, stable=True), 3 * word),
+        # positions and operand in (the operand's rows in random order), one out
+        "index_select_int64": (lambda: operand.index_select(0, perm), 3 * word),
+        "cumsum_int64": (lambda: torch.cumsum(operand, 0), 2 * word),
+        "cummax_int64": (lambda: torch.cummax(operand, 0), 3 * word),
+    }
+    out = {"rows": n}
+    for name, (fn, moved) in cases.items():
+        out[name] = dict(ms=median_ms(fn, runs), bound_ms=moved / PEAK_BYTES_PER_S * 1e3,
+                         bytes=moved)
+    return out
 
 
 def time_query(ex, tiles, runs: int):
@@ -520,8 +620,8 @@ def main() -> int:
     # ---- the main path, with the counts set to 0 just before it
     for w in wrappers.values():
         w.launches = 0
-    result6, got6 = check_result(6, ex6, tiles6, tables6)
-    result1, got1 = check_result(1, ex1, tiles1, tables1)
+    result6, got6, _ = check_result(6, ex6, tiles6, tables6)
+    result1, got1, _ = check_result(1, ex1, tiles1, tables1)
     q6_exact = int(result6.columns["revenue"][0])  # unscaled DECIMAL(18,4)
     passing = drive_ops(tiles6, ex1, tiles1, result1, q6_exact)
     launches = {name: w.launches for name, w in wrappers.items()}
@@ -546,6 +646,66 @@ def main() -> int:
         rows_per_s = rep["rows"] / (timing["engine_ms"] * 1e-3)
         say(f"q{num}", sf=args.sf, **rep, **timing, rows_per_s=rows_per_s,
             k2_launches_while_timing=k2, correct=True)
+
+    del ex6, tiles6, tables6, ex1, tiles1, tables1, result6, result1
+    torch.cuda.empty_cache()
+
+    say("primitives", card=smi, published_bytes_per_s=PEAK_BYTES_PER_S,
+        **time_primitives(args.runs))
+
+    # ---- the sort-mode paths: joins, sort-mode grouping, device TopN.  They
+    # launch none of the hand-written kernels, and must not.
+    before = dict((name, w.launches) for name, w in wrappers.items())
+    for num in (3, 13):
+        tables, gen = generate_tables(num, args.sf)
+        ex, tiles, plan, rep = plan_query(num, tables, args.tile_rows)
+        assert ex.kind == "sort_agg_device", ex.kind
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, got, want = check_result(num, ex, tiles, tables)
+        check_s = time.perf_counter() - t0
+        first = sort_mode_report(ex)
+        first["device_peak_bytes_first_run"] = torch.cuda.max_memory_allocated()
+        assert not ex.carry_overflowed, first
+        extra = {}
+        if num == 3:
+            # several tiles: grouped without a sort, merged through the carry
+            assert rep["tiles"] == 1 or (rep["presorted"] and ex.carry_groups), (rep, first)
+            extra["top_row"] = [int(got["l_orderkey"][0]), float(got["revenue"][0])]
+        else:
+            # Q13's grouping over orders is its join's build side: time that
+            # plan alone too (one executor, the tile kept on the device)
+            from velox_tpu_torch.exec.runner import LocalExecutor
+
+            build_ex = LocalExecutor(join_steps(ex)[0].node.right, tile_rows=args.tile_rows)
+            build_tiles = build_ex.device_tiles()
+            extra["build_side"] = dict(
+                kind=build_ex.kind, rows=build_ex.source_table.num_rows,
+                tiles=len(build_tiles), keys=[k.name for k in build_ex.agg_exec.key_infos],
+                **time_query(build_ex, build_tiles, args.runs),
+                groups_out=build_ex.groups_out, carry_groups=build_ex.carry_groups,
+            )
+            del build_ex, build_tiles
+            # once more with small tiles, for the rows only: the build side's
+            # 2^22-row tiles go through the carry merge
+            small = 1 << 22
+            ex4, tiles4, _, rep4 = plan_query(num, tables, small, plan=plan)
+            check_result(num, ex4, tiles4, tables, want=want)
+            extra["again_at_tile_rows"] = dict(
+                tile_rows=small, correct=True, build_s=rep4["build_s"],
+                orders_tiles=-(-tables["orders"].num_rows // small),
+            )
+            del ex4, tiles4
+        timing = time_query(ex, tiles, args.runs)
+        rows_per_s = rep["rows"] / (timing["engine_ms"] * 1e-3)
+        say(f"q{num}", **{
+            "sf": args.sf, "generate_s": gen, **rep, **timing, "rows_per_s": rows_per_s,
+            "oracle_and_first_run_s": check_s, "result_rows": int(len(got)),
+            "correct": True, **first, **sort_mode_report(ex), **extra,
+        })
+        del ex, tiles, tables, plan
+        torch.cuda.empty_cache()
+    assert before == dict((name, w.launches) for name, w in wrappers.items())
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound", "geometry")

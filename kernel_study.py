@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Longer measurements of the two grouped-sum kernels than chip_smoke.py makes.
+"""Longer measurements than chip_smoke.py makes: the two grouped-sum kernels,
+and the scan of the sort-mode paths.
 
     python3 kernel_study.py [--sf 10] [--tile-rows 16777216] [--runs 5] [--sass-dir DIR]
 
 Needs one CUDA device, nvcc and cuobjdump; run it from the repository root,
 beside ``chip_smoke.py``, whose inputs, timer and JSON lines it uses.  On one
-tile of TPC-H Q1 at SF ``sf`` it prints, one JSON line each:
+tile of TPC-H Q1 at SF ``sf`` (``last_flagged_row``: on 2^24 made-up rows) it
+prints, one JSON line each:
 
 ``sass``      per kernel of the built library, the counts of the opcodes that
               show how the design was compiled (shared atomics, bulk copies,
@@ -18,7 +20,12 @@ tile of TPC-H Q1 at SF ``sf`` it prints, one JSON line each:
 ``piece_cost_split``  kernel ms of ``grouped_piece_sums`` with parts of the
               work taken away (all rows dead, count specs only, one spec with
               every factor), which shows what staging, table adds and products
-              each cost.
+              each cost;
+``last_flagged_row``  what every ``cummax`` / ``cummin`` of the sort-mode paths
+              computes ("the last flagged row at or before this one"), timed
+              as the engine does it and as a prefix count of the flags, a
+              scatter by that count and a gather back; equal results asserted.
+              The engine does not contain the second form.
 
 The wrappers take no tuning argument: a variant is run by planning every
 launch inside ``planned_with(...)`` with that override of
@@ -37,6 +44,8 @@ import subprocess
 import sys
 
 from chip_smoke import (
+    DEVICE,
+    PEAK_BYTES_PER_S,
     equal_bits,
     median_ms,
     prepare_query,
@@ -149,6 +158,37 @@ def piece_cost_split(cols, gid_live, plans, groups, runs: int):
     return out
 
 
+def last_flagged_row(runs: int, n: int = 1 << 24):
+    """ms of "the last flagged row at or before each row" over ``n`` rows, 1
+    in 8 flagged, two ways on one input: the running maximum of the flagged
+    positions, and prefix count + scatter + gather."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(24)
+    iota = torch.arange(n, dtype=torch.int64, device=DEVICE)
+    flag = torch.randint(0, 8, (n,), generator=gen, device=DEVICE) == 0
+    marked = torch.where(flag, iota, torch.full_like(iota, -1))
+
+    def by_cummax():
+        return torch.cummax(marked, 0).values
+
+    def by_count_scatter_gather():
+        count = torch.cumsum(flag, 0)  # flags at or before the row
+        table = torch.full((n + 2,), -1, dtype=torch.int64, device=DEVICE)
+        table.scatter_(0, torch.where(flag, count, torch.full_like(count, n + 1)), iota)
+        return table.index_select(0, count)
+
+    assert torch.equal(by_cummax(), by_count_scatter_gather())
+    return dict(
+        rows=n,
+        cummax_ms=median_ms(by_cummax, runs),
+        count_scatter_gather_ms=median_ms(by_count_scatter_gather, runs),
+        # flags read, positions written
+        bound_ms=(n + 8 * n) / PEAK_BYTES_PER_S * 1e3,
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=10.0)
@@ -182,6 +222,7 @@ def main() -> int:
     say("variants", rows=int(gid_live.shape[0]),
         **variant_sweep(cols, gid_live, plans, groups, wide, gids, mask, args.runs))
     say("piece_cost_split", **piece_cost_split(cols, gid_live, plans, groups, args.runs))
+    say("last_flagged_row", card=smi, **last_flagged_row(args.runs))
     return 0
 
 

@@ -19,10 +19,15 @@ import {module}
 import velox_tpu_torch.exec.runner, velox_tpu_torch.connectors.tpch.plans
 import velox_tpu_torch.ops.group_piece, velox_tpu_torch.ops.group_sum
 import velox_tpu_torch.ops.selective_sum, velox_tpu_torch.ops.cuda_build
+import velox_tpu_torch.ops.segmented, velox_tpu_torch.ops.sortkey
+import velox_tpu_torch.ops.compact, velox_tpu_torch.exec.joins
+import velox_tpu_torch.exec.sort, velox_tpu_torch.exec.grouping
+import velox_tpu_torch.utils.transfer
 import velox_tpu_torch.testing
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "velox_tpu" or m.startswith("velox_tpu."))
+             or m == "velox_tpu" or m.startswith("velox_tpu.")
+             or m == "triton" or m.startswith("triton."))
 print("BAD", bad)
 """
 
@@ -82,6 +87,35 @@ def test_default_device_raises_without_cuda():
         table.tile(0, 1024)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         table.device_tiles(1024)
+
+
+def test_join_and_collect_entry_points_raise_without_cuda():
+    """Joins, collect pipelines and the host build resolve ``device=None`` to
+    CUDA like every other entry point; with ``device="cpu"`` the build sides'
+    sub-executors run on the CPU too (they take the parent's device)."""
+    from velox_tpu_torch.exec.joins import HashJoinExec
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.plan import PlanBuilder
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default device exists")
+    table, _ = _tiny_plan()
+    build = PlanBuilder().table_scan(table).aggregation(["v"], ["count(*) as n"])
+    join = (
+        PlanBuilder().table_scan(table)
+        .hash_join(build, ["v"], ["v"], output=["k", "n"], join_type="left")
+        .orderby(["k"]).build()
+    )
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalExecutor(join)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalExecutor(PlanBuilder().table_scan(table).build())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HashJoinExec.build(join.source, table)
+    ex = LocalExecutor(join, device="cpu")
+    assert ex.run().num_rows == 8
+    [step] = [s for s in ex.lin.steps if s[0] == "join"]
+    assert step[1].device.type == "cpu"
 
 
 def test_explicit_cpu_runs():

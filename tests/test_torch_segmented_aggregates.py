@@ -231,5 +231,7 @@ def test_key_info_and_array_grouping():
         assert (p is None) == (r is None)
         if p is not None:
             np.testing.assert_array_equal(p, r)
-    with pytest.raises(NotImplementedError, match="sort-mode"):
-        port_grp.SortGrouping(p_infos)
+    # sort mode takes the same keys: a packed word when they all have bounds
+    sg, rsg = port_grp.SortGrouping(p_infos), ref_grp.SortGrouping(r_infos)
+    plan, rplan = sg.pack_plan(1 << 14), rsg.pack_plan(1 << 14)
+    assert (plan.bits, plan.shifts, plan.null_codes) == (rplan.bits, rplan.shifts, rplan.null_codes)

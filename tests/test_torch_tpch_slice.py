@@ -174,23 +174,31 @@ def test_prefetched_tiles_and_stats():
 
 def test_unported_plans_raise_by_name():
     tables = _tables(1)[1]
-    with pytest.raises(NotImplementedError, match="Q3"):
-        port_plans.build_query(3, tables)
+    with pytest.raises(NotImplementedError, match="Q5"):
+        port_plans.build_query(5, tables)
     from velox_tpu_torch.plan import PlanBuilder
 
-    scan_only = PlanBuilder().table_scan(tables["lineitem"]).build()
-    with pytest.raises(NotImplementedError, match="collect"):
-        PortExecutor(scan_only, device="cpu")
-    with pytest.raises(NotImplementedError, match="hash_join"):
-        PlanBuilder().table_scan(tables["lineitem"]).hash_join(None, [], [])
-    sort_mode = (
-        PlanBuilder()
-        .table_scan(tables["lineitem"])
-        .aggregation(["l_extendedprice"], ["count(*) as c"])
-        .build()
-    )
-    with pytest.raises(NotImplementedError, match="sort-mode"):
-        PortExecutor(sort_mode, device="cpu")
+    scan = lambda: PlanBuilder().table_scan(tables["lineitem"])  # noqa: E731
+    for method in ("cross_join", "union_all", "window", "unnest", "table_write"):
+        with pytest.raises(NotImplementedError, match=method):
+            getattr(scan(), method)(None)
+    # a join whose build side repeats its key needs the expansion join
+    dup = scan().hash_join(scan(), ["l_tax"], ["l_tax"], output=["l_tax"]).build()
+    with pytest.raises(NotImplementedError, match="DuplicateBuildKeys"):
+        PortExecutor(dup, device="cpu")
+    full = scan().hash_join(
+        scan(), ["l_tax"], ["l_tax"], output=["l_tax"], join_type="full"
+    ).build()
+    with pytest.raises(NotImplementedError, match="FULL"):
+        PortExecutor(full, device="cpu")
+    # what the earlier slices refused now runs: a collect pipeline and a
+    # sort-mode grouping
+    collect = PortExecutor(scan().limit(3).build(), tile_rows=1 << 14, device="cpu")
+    assert collect.kind == "collect" and collect.run().num_rows == 3
+    sort_mode = scan().aggregation(["l_extendedprice"], ["count(*) as c"]).build()
+    ex = PortExecutor(sort_mode, tile_rows=1 << 14, device="cpu")
+    assert ex.kind == "sort_agg_device"
+    assert int(ex.run().columns["c"].sum()) == tables["lineitem"].num_rows
 
 
 def test_piece_path_with_wide_accumulators():

@@ -14,10 +14,15 @@ from typing import Optional
 class QueryConfig:
     """Per-query options (reference: core::QueryConfig)."""
 
-    # Device-memory budget for one query's device-resident state (scan tiles);
+    # Device-memory budget for one query's device-resident state (scan tiles,
+    # join builds, aggregation carries);
     # None = untracked.  Reference: QueryConfig kQueryMaxMemoryPerNode +
     # MemoryArbitrator.h:43.
     query_memory_limit_bytes: Optional[int] = None
+    # Grouped aggregation: merge per-tile partial groups on device (sorted-
+    # carry state, no per-tile host fetches).  False = host merge of the
+    # per-tile partials (one fetch a tile), which handles any group count.
+    device_agg_merge: bool = True
 
     def copy(self, **overrides) -> "QueryConfig":
         return dataclasses.replace(self, **overrides)

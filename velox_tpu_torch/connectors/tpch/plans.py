@@ -1,11 +1,12 @@
 """TPC-H physical plan construction.
 
 Counterpart of the JAX package's ``connectors/tpch/plans.py`` for the queries
-this package runs so far (Q1, Q6).  Reference:
+this package runs so far (Q1, Q3, Q6, Q13).  Reference:
 velox/exec/tests/utils/TpchQueryBuilder.h:61 — fully-specified physical plans
-(the engine ships no optimizer, like the reference).  The other twenty plans
-come with the operators they need (sort-mode grouping, joins, TopN);
-``build_query`` raises ``NotImplementedError`` for them.
+(the engine ships no optimizer, like the reference).  The other eighteen plans
+come with the operators they need (expansion joins, FULL joins, filtered
+joins, scalar subqueries); ``build_query`` raises ``NotImplementedError`` for
+them.
 """
 
 from __future__ import annotations
@@ -48,6 +49,47 @@ def build_q1(lineitem: Table) -> PlanNode:
     )
 
 
+def build_q3(customer: Table, orders: Table, lineitem: Table) -> PlanNode:
+    building = (
+        PlanBuilder()
+        .table_scan(customer, filter="c_mktsegment = 'BUILDING'")
+        .project(["c_custkey"])
+    )
+    orders_build = (
+        PlanBuilder()
+        .table_scan(orders, filter="o_orderdate < date '1995-03-15'")
+        .hash_join(
+            building,
+            ["o_custkey"],
+            ["c_custkey"],
+            output=["o_orderkey", "o_orderdate", "o_shippriority"],
+            join_type="left_semi",
+        )
+    )
+    return (
+        PlanBuilder()
+        .table_scan(lineitem, filter="l_shipdate > date '1995-03-15'")
+        .hash_join(
+            orders_build,
+            ["l_orderkey"],
+            ["o_orderkey"],
+            output=[
+                "l_orderkey",
+                "l_extendedprice",
+                "l_discount",
+                "o_orderdate",
+                "o_shippriority",
+            ],
+        )
+        .aggregation(
+            ["l_orderkey", "o_orderdate", "o_shippriority"],
+            ["sum(l_extendedprice * (1 - l_discount)) as revenue"],
+        )
+        .topn(["revenue desc", "o_orderdate", "l_orderkey"], 10)
+        .build()
+    )
+
+
 def build_q6(lineitem: Table) -> PlanNode:
     return (
         PlanBuilder()
@@ -65,9 +107,39 @@ def build_q6(lineitem: Table) -> PlanNode:
     )
 
 
+def build_q13(customer: Table, orders: Table) -> PlanNode:
+    counts = (
+        PlanBuilder()
+        .table_scan(orders, filter="o_comment not like '%special%requests%'")
+        .aggregation(["o_custkey"], ["count(*) as cnt"])
+    )
+    return (
+        PlanBuilder()
+        .table_scan(customer)
+        .hash_join(
+            counts,
+            ["c_custkey"],
+            ["o_custkey"],
+            output=["c_custkey", "cnt"],
+            join_type="left",
+        )
+        .project(["coalesce(cnt, 0) as c_count"])
+        .aggregation(["c_count"], ["count(*) as custdist"])
+        .orderby(["custdist desc", "c_count desc"])
+        .build()
+    )
+
+
 _BUILDERS = {
     1: (build_q1, ["lineitem"]),
+    3: (build_q3, ["customer", "orders", "lineitem"]),
     6: (build_q6, ["lineitem"]),
+    13: (build_q13, ["customer", "orders"]),
+}
+
+# engine column order may differ from the oracle's; map for comparison
+ENGINE_OUTPUT_ORDER = {
+    3: ["l_orderkey", "revenue", "o_orderdate", "o_shippriority"],
 }
 
 
@@ -104,4 +176,6 @@ def run_query(num: int, sf: float, tile_rows: int = 1 << 20, stats=None, device=
     tables = load_query_tables(num, sf)
     plan = build_query(num, tables)
     result = run_plan(plan, tile_rows=tile_rows, stats=stats, device=device).to_pandas()
+    if num in ENGINE_OUTPUT_ORDER:
+        result = result[ENGINE_OUTPUT_ORDER[num]]
     return result.reset_index(drop=True), oracle_result(num, tables)

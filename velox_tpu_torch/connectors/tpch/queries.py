@@ -1,7 +1,7 @@
 """TPC-H benchmark queries: SQL text + exact host-side oracles.
 
 Counterpart of the JAX package's ``connectors/tpch/queries.py`` for the
-queries this package runs so far (Q1, Q6).  Reference:
+queries this package runs so far (Q1, Q3, Q6, Q13).  Reference:
 velox/exec/tests/utils/TpchQueryBuilder.h:61 (plan construction per query) +
 velox/exec/tests/utils/QueryAssertions.h:37 (DuckDB oracle).  The oracle is a
 numpy implementation that computes on the generator's *unscaled int64* decimal
@@ -12,12 +12,25 @@ these oracles on identical data.
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
 import pandas as pd
 
 from .gen import _days
+
+
+def _like_to_regex(pattern: str) -> str:
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return "^" + "".join(out) + "$"
 
 # ---- Q1: pricing summary report -----------------------------------------
 
@@ -94,6 +107,67 @@ def q1_oracle(lineitem) -> pd.DataFrame:
     return out
 
 
+# ---- Q3: shipping priority ----------------------------------------------
+
+Q3_SQL = """
+select l_orderkey,
+       sum(l_extendedprice * (1 - l_discount)) as revenue,
+       o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING'
+  and c_custkey = o_custkey and l_orderkey = o_orderkey
+  and o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10
+"""
+
+Q3_COLUMNS = {
+    "customer": ["c_custkey", "c_mktsegment"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
+    "lineitem": ["l_orderkey", "l_extendedprice", "l_discount", "l_shipdate"],
+}
+
+
+def q3_oracle(customer, orders, lineitem, limit: int = 10) -> pd.DataFrame:
+    cutoff = _days("1995-03-15")
+    seg_code = customer.string_tables["c_mktsegment"].lookup("BUILDING")
+    ckeep = customer.columns["c_mktsegment"] == seg_code
+    ckeys = customer.columns["c_custkey"][ckeep]
+
+    okeep = orders.columns["o_orderdate"] < cutoff
+    okeep &= np.isin(orders.columns["o_custkey"], ckeys)
+    odf = pd.DataFrame(
+        {
+            "o_orderkey": orders.columns["o_orderkey"][okeep],
+            "o_orderdate": orders.columns["o_orderdate"][okeep],
+            "o_shippriority": orders.columns["o_shippriority"][okeep],
+        }
+    )
+
+    lkeep = lineitem.columns["l_shipdate"] > cutoff
+    ldf = pd.DataFrame(
+        {
+            "l_orderkey": lineitem.columns["l_orderkey"][lkeep],
+            "rev": (
+                lineitem.columns["l_extendedprice"][lkeep].astype(np.int64)
+                * (100 - lineitem.columns["l_discount"][lkeep].astype(np.int64))
+            ),
+        }
+    )
+    j = ldf.merge(odf, left_on="l_orderkey", right_on="o_orderkey")
+    g = (
+        j.groupby(["l_orderkey", "o_orderdate", "o_shippriority"], as_index=False)["rev"]
+        .sum()
+        .rename(columns={"rev": "revenue"})
+    )
+    g["revenue"] = g["revenue"] / 1e4
+    g = g.sort_values(
+        ["revenue", "o_orderdate", "l_orderkey"], ascending=[False, True, True]
+    ).head(limit)
+    return g[["l_orderkey", "revenue", "o_orderdate", "o_shippriority"]].reset_index(drop=True)
+
+
 # ---- Q6: forecasting revenue change -------------------------------------
 
 Q6_SQL = """
@@ -127,7 +201,46 @@ def q6_oracle(lineitem) -> pd.DataFrame:
     return pd.DataFrame({"revenue": [revenue / 1e4]})
 
 
+# ---- Q13: customer distribution -----------------------------------------
+
+Q13_SQL = """
+select c_count, count(*) as custdist
+from (select c_custkey, count(o_custkey) as c_count
+      from customer left outer join orders
+        on c_custkey = o_custkey
+       and o_comment not like '%special%requests%'
+      group by c_custkey) as c_orders
+group by c_count
+order by custdist desc, c_count desc
+"""
+
+Q13_COLUMNS = {
+    "customer": ["c_custkey"],
+    "orders": ["o_custkey", "o_comment"],
+}
+
+
+def q13_oracle(customer, orders) -> pd.DataFrame:
+    pattern = re.compile(_like_to_regex("%special%requests%"))
+    table = orders.string_tables["o_comment"]
+    match_by_code = np.asarray(
+        [bool(pattern.match(s)) for s in table.values()], dtype=bool
+    )
+    keep = ~match_by_code[orders.columns["o_comment"]]
+    counts = pd.Series(orders.columns["o_custkey"][keep]).value_counts()
+    per_customer = (
+        pd.Series(0, index=customer.columns["c_custkey"])
+        .add(counts, fill_value=0)
+        .astype(np.int64)
+    )
+    dist = per_customer.value_counts().rename_axis("c_count").rename("custdist").reset_index()
+    dist = dist.sort_values(["custdist", "c_count"], ascending=[False, False])
+    return dist.reset_index(drop=True)
+
+
 QUERY_COLUMNS: Dict[int, object] = {
     1: {"lineitem": Q1_COLUMNS},
+    3: Q3_COLUMNS,
     6: {"lineitem": Q6_COLUMNS},
+    13: Q13_COLUMNS,
 }

@@ -11,7 +11,9 @@ ungrouped aggregation is the G=1 case.  Each accumulator declares its combine
 op (sum/min/max), from which raw-input updates and partial merges both derive.
 
 Ported so far: count, sum, avg, min, max (and the bounds-proven narrow sum and
-avg).  Lexicographic pairs (min_by / max_by), statistical, bitwise, collect and
+avg), each in the direct modes (``update``) and in sort mode (``run_reduce``
+over a tile's sorted runs, ``merge_runs`` in the carry merge,
+``host_merge_sorted`` in the host merge).  Lexicographic pairs (min_by / max_by), statistical, bitwise, collect and
 sketch aggregates come with later slices; binding one raises ``KeyError`` by
 name.
 
@@ -29,6 +31,7 @@ import torch
 
 from ..dtypes import BIGINT, DOUBLE, DataType, TypeKind, decimal
 from ..ops.segmented import (
+    SortedRuns,
     direct_group_reduce,
     identity_for as _identity,
     masked_reduce,
@@ -97,9 +100,54 @@ class BoundAggregate:
         )
         return self._combine_states(accs, news)
 
+    def _masked(self, arrays, mask):
+        """Raw inputs cast to the accumulator dtypes, dead rows at identity."""
+        out = []
+        for arr, dt, op in zip(arrays, self.acc_dtypes, self.acc_ops):
+            arr = arr.to(dt)
+            out.append(
+                torch.where(mask, arr, torch.full_like(arr, _identity(op, dt)))
+            )
+        return out
+
+    def run_reduce(self, values, mask, runs: SortedRuns):
+        """Per-run reductions for sort-mode grouping: tuple of [capacity]
+        tensors where slot r is run r's partial accumulator."""
+        arrays = self._masked(self.raw_inputs(values, mask), mask)
+        return tuple(
+            runs.reduce(arr, mask, op) for arr, op in zip(arrays, self.acc_ops)
+        )
+
+    def merge_runs(self, acc_arrays, valid, runs: SortedRuns):
+        """Merge already-partial accumulator rows grouped into runs (device
+        sorted-carry merge path)."""
+        result = tuple(
+            runs.reduce(arr, valid, op) for arr, op in zip(acc_arrays, self.acc_ops)
+        )
+        return self.post_combine(result) if self.post_combine else result
+
     def merge(self, a, b):
         """Combine two aligned partial states (reference: spill/bridge merges)."""
         return self._combine_states(a, b)
+
+    def host_merge_sorted(self, acc_arrays, starts):
+        """Merge group-sorted host partial rows (numpy arrays) into per-group
+        accumulators; ``starts`` marks each group's first row."""
+        out = []
+        for arr, op in zip(acc_arrays, self.acc_ops):
+            if len(starts) == 0:
+                out.append(arr[:0])
+            elif op == "sum":
+                if self.post_combine is not None:
+                    # wide-limb sums: merge in python-int space so the lo
+                    # limb cannot wrap across many tiles
+                    arr = arr.astype(object)
+                out.append(np.add.reduceat(arr, starts))
+            elif op == "min":
+                out.append(np.minimum.reduceat(arr, starts))
+            else:
+                out.append(np.maximum.reduceat(arr, starts))
+        return tuple(out)
 
     def extract(self, accs):
         return self.extract_fn(accs)

@@ -11,8 +11,11 @@ The mode decision is made when the plan is compiled, from static metadata
   (dictionary-encoded strings, booleans, bounded integers); the composite id
   is a mixed-radix code and aggregation is a direct reduction into
   ``num_groups`` slots.
-* SortGrouping (replaces kHash): no static range — not ported yet; it comes
-  with the sort-mode grouping slice.
+* SortGrouping (replaces kHash): no static range — sort the tile by the key
+  tuple, derive group ids from run boundaries, reduce each run
+  (ops/segmented.py SortedRuns).  The reference's split-dispatch halves
+  (``sort_inputs`` / ``sorted_boundary`` / ``group_from_sorted``) exist for its
+  compiler and are not ported.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ class KeyInfo:
     # groups all NULL keys together (reference: velox/exec/VectorHasher.h
     # reserves value-id 0 for null); nullable keys get a dedicated null code.
     nullable: bool = False
-    # Synthetic null-flag key of sort mode (not ported yet).
+    # Synthetic null-flag key (unbounded-key fallback of sort mode): no real
+    # column — its value is a bitmask of is-null flags over the named keys.
     null_sources: Optional[Tuple[str, ...]] = None
 
 
@@ -139,9 +143,133 @@ class ArrayGrouping:
 
 
 class SortGrouping:
-    """Per-tile sort + run-boundary grouping; not ported yet."""
+    """Per-tile sort + run-boundary grouping; group count is data-dependent but
+    bounded by the tile capacity (static).
+
+    ``presorted=True`` skips the sort: the input is already ordered by (at
+    least) the first key — e.g. downstream of a sort-merge join — so equal key
+    tuples are grouped by adjacent comparison alone.  Runs may then split a
+    logical group (secondary keys interleave within a primary-key run); the
+    carry merge collapses such duplicates, so the executor must always run the
+    merge step in this mode (reference: exec/StreamingAggregation.h, which
+    likewise relies on sorted inputs)."""
 
     def __init__(self, keys: Sequence[KeyInfo], presorted: bool = False):
-        raise NotImplementedError(
-            "sort-mode grouping is not ported yet; it comes with the TPC-H Q13 slice"
+        self.keys = list(keys)
+        self.presorted = presorted
+
+    def pack_plan(self, capacity: int):
+        """PackPlan for (keys..., row-id) if every key has resolvable bounds
+        and the total fits 63 bits; None -> several-key sort fallback
+        (the kNormalizedKey -> kHash degradation, HashTable.cpp:1376).
+        Nullable keys reserve a dedicated null code so NULL keys form one
+        group (Presto GROUP BY semantics)."""
+        from ..ops.sortkey import PackPlan, index_bits
+
+        bounds = []
+        for k in self.keys:
+            if k.bounds is None:
+                return None
+            bounds.append(k.bounds)
+        return PackPlan.fit(
+            bounds,
+            extra_bits=index_bits(capacity),
+            sentinel_fields=(0,),
+            null_fields=tuple(i for i, k in enumerate(self.keys) if k.nullable),
         )
+
+    def _decode_keys(self, batch: Batch):
+        """Per-key (values, validity) with synthetic null-bit keys computed
+        and nullable key values canonicalized to 0 on NULL rows (so the
+        several-key fallback sorts deterministic values; the packed path
+        additionally maps NULL to the field's null code via ``validities``)."""
+        cap = batch.capacity
+        raw = {}
+        for k in self.keys:
+            if k.null_sources is None:
+                raw[k.name] = batch.column(k.name).decode(cap)
+        key_vals: List[torch.Tensor] = []
+        key_valid: List[Optional[torch.Tensor]] = []
+        for k in self.keys:
+            if k.null_sources is not None:
+                bits = torch.zeros((cap,), dtype=torch.int64, device=batch.device)
+                for j, src in enumerate(k.null_sources):
+                    v, val = raw.get(src) or batch.column(src).decode(cap)
+                    if val is not None:
+                        bits = bits | ((~val).to(torch.int64) << j)
+                key_vals.append(bits)
+                key_valid.append(None)
+                continue
+            v, val = raw[k.name]
+            if k.nullable and val is not None:
+                v = torch.where(val, v, torch.zeros_like(v))
+                key_valid.append(val)
+            else:
+                key_valid.append(None)
+            key_vals.append(v)
+        return key_vals, key_valid
+
+    def sort_and_group(self, batch: Batch, payload: Sequence[torch.Tensor], mask: torch.Tensor):
+        """Returns (sorted key tensors, sorted payload tensors, sorted mask, runs).
+
+        Rows are sorted with liveness as the primary key so dead rows sink to
+        the end and cannot split runs of equal keys.  ``runs`` (ops/segmented
+        SortedRuns) carries the run structure for the reductions.
+
+        The reference carries payloads and the mask through its sort as extra
+        operands; ``torch.sort`` sorts one tensor, so here they follow through
+        the sort's permutation, one gather each.  The rows come out the same.
+        """
+        from ..ops.segmented import SortedRuns, run_boundaries
+        from ..ops.sortkey import sort_operands
+
+        cap = batch.capacity
+        key_vals, key_valid = self._decode_keys(batch)
+        if self.presorted:
+            # already key-ordered (dead rows keep their key values, so runs
+            # spanning dead rows stay intact); no sort at all
+            sorted_keys, sorted_payload, sorted_mask = key_vals, list(payload), mask
+            return sorted_keys, sorted_payload, sorted_mask, SortedRuns(
+                run_boundaries(_key_change(sorted_keys, cap, mask.device), sorted_mask),
+                sorted_mask,
+            )
+        carried = list(payload) + [mask]
+        plan = self.pack_plan(cap)
+        if plan is not None:
+            # One packed key (ops/sortkey.py): liveness sentinel + every key +
+            # the row-id ride in a single int64, so the words are unique.
+            idx64 = torch.arange(cap, dtype=torch.int64, device=mask.device)
+            packed = plan.pack_with_sentinel(key_vals, ~mask, key_valid)
+            s, perm = torch.sort(packed | idx64, stable=True)
+            codes = s >> plan.low_bits
+            sorted_keys = [
+                plan.unpack(s, i).to(kv.dtype) for i, kv in enumerate(key_vals)
+            ]
+            moved = [c.index_select(0, perm) for c in carried]
+            sorted_payload, sorted_mask = moved[:-1], moved[-1]
+            diff = codes != torch.roll(codes, 1)
+            runs = SortedRuns(run_boundaries(diff, sorted_mask), sorted_mask)
+            return sorted_keys, sorted_payload, sorted_mask, runs
+        # Several-key fallback: (liveness, keys) as sort keys, payloads carried.
+        n_keys = len(key_vals)
+        sorted_ops = sort_operands([~mask] + key_vals + carried, num_keys=1 + n_keys)
+        sorted_keys = sorted_ops[1 : 1 + n_keys]
+        sorted_payload = list(sorted_ops[1 + n_keys : -1])
+        sorted_mask = sorted_ops[-1]
+        diff = _key_change(sorted_keys, cap, mask.device)
+        runs = SortedRuns(run_boundaries(diff, sorted_mask), sorted_mask)
+        return sorted_keys, sorted_payload, sorted_mask, runs
+
+    @staticmethod
+    def group_keys(sorted_keys, runs):
+        """Representative key value per run slot (keys are equal within a run)."""
+        return [runs.first(kv) for kv in sorted_keys]
+
+
+def _key_change(sorted_keys, n: int, device) -> torch.Tensor:
+    """bool[n]: some key differs from the previous row's (row 0 compares with
+    the last row; run_boundaries starts a run there regardless)."""
+    diff = torch.zeros((n,), dtype=torch.bool, device=device)
+    for kv in sorted_keys:
+        diff = diff | (kv != torch.roll(kv, 1))
+    return diff

@@ -1,0 +1,1024 @@
+"""Hash join execution: the unique-build regime.
+
+Counterpart of the JAX package's ``exec/joins.py``.  Reference:
+velox/exec/HashBuild.h:39 / HashProbe.h:28 / HashJoinBridge.h — the reference
+builds a quadratic-probing hash table from the build side and streams probe
+batches through it.
+
+This pass keeps the JAX package's algorithm, a **sort-merge lookup**, so that
+every function can be held against its twin (a hash probe written for the GPU
+is a later change, measured against this one):
+
+  1. build side: key-sorted tensors, device-resident (the JoinBridge analog);
+  2. per probe tile: sort the concatenation [build keys ++ probe keys] with a
+     tie-break flag so each build row precedes equal probe keys;
+  3. a running maximum (cummax) of "last build row seen" gives every probe row
+     its candidate match in one scan;
+  4. the output is emitted in merged key order (fused probe) or compacted by a
+     second sort (classification path).
+
+Everything is sort / scan / gather.  This is the normalized-key regime the
+reference itself prefers (HashTable kNormalizedKey, velox/exec/HashTable.h:74):
+multi-column keys are packed into one int64 normalized key from build-side
+value ranges (VectorHasher range mode, velox/exec/VectorHasher.h:118); probe
+values outside any range cannot match and map to a negative sentinel.
+
+Every sort here is stable (``torch.sort(stable=True)``): build rows must
+precede equal probe keys, and ties keep their input order.
+
+Scope: equi-joins with a UNIQUE build side (primary-key joins), types INNER,
+LEFT, LEFT_SEMI and ANTI (semi / anti deduplicate the build keys, so any build
+side works there).  Not ported yet, each raising ``NotImplementedError`` by
+name: a build side with duplicate keys (``DuplicateBuildKeys``: the expansion
+join with ``probe_spans`` / ``expand`` and ops/segpool), FULL joins and
+``full_tail``, ``left_join_filter``, the ``rewrite_*`` plan lowerings for
+filtered semi / anti / full joins, and ``probe_split_host`` (a split dispatch
+that exists for the JAX package's compiler).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..io.table import Table
+from ..ops.sortkey import sort_operands
+from ..plan.nodes import HashJoinNode, JoinType
+from ..vector.column import Batch, Column, _take_clamped as _take
+
+
+class JoinBuildError(RuntimeError):
+    pass
+
+
+class DuplicateBuildKeys(JoinBuildError, NotImplementedError):
+    """The build side holds duplicate keys: it needs the expansion join
+    (per-key runs, probe_spans / expand), which is not ported yet."""
+
+
+def _not_ported(name: str, what: str):
+    def raiser(*args, **kwargs):
+        raise NotImplementedError(f"exec.joins.{name} ({what}) is not ported yet")
+
+    raiser.__name__ = name
+    return raiser
+
+
+rewrite_filtered_existence_joins = _not_ported(
+    "rewrite_filtered_existence_joins", "non-equi filters on semi / anti joins"
+)
+rewrite_null_aware_anti_filter = _not_ported(
+    "rewrite_null_aware_anti_filter", "filtered null-aware anti joins"
+)
+rewrite_left_filter_nm = _not_ported(
+    "rewrite_left_filter_nm", "non-equi filters on N:M LEFT joins"
+)
+rewrite_full_filter = _not_ported("rewrite_full_filter", "filtered FULL joins")
+
+
+@dataclasses.dataclass
+class _NormalizedKey:
+    """Pack k build-key columns into one int64 (VectorHasher range mode).
+
+    Composite keys wider than 62 bits split into TWO int64 limbs (``split``
+    marks the first low-limb field) — the analog of the reference's
+    kNormalizedKey -> kHash degradation (HashTable.cpp decideHashMode),
+    except exactness is kept by comparing both limbs instead of hashing.
+    """
+
+    mins: np.ndarray  # [k] int64 per-key build-side minimum
+    maxs: np.ndarray  # [k] int64 per-key build-side maximum
+    shifts: np.ndarray  # [k] left-shift per key (within its limb)
+    split: int = 0  # fields [0, split) ride the HIGH limb; 0 = single-limb
+
+    @property
+    def two_limb(self) -> bool:
+        return self.split > 0
+
+    @staticmethod
+    def fit(key_arrays: Sequence[np.ndarray]) -> "_NormalizedKey":
+        return _NormalizedKey.fit_from_bounds(
+            [int(a.min()) if len(a) else 0 for a in key_arrays],
+            [int(a.max()) if len(a) else 0 for a in key_arrays],
+        )
+
+    @staticmethod
+    def fit_from_bounds(los, his) -> "_NormalizedKey":
+        mins, maxs, bits = [], [], []
+        for lo, hi in zip(los, his):
+            lo, hi = int(lo), max(int(lo), int(hi))
+            mins.append(lo)
+            maxs.append(hi)
+            bits.append(max(1, int(hi - lo).bit_length()))
+        split = 0
+        if sum(bits) > 62 and len(bits) > 1:
+            # greedy: fill the high limb until the rest fits the low limb.
+            # A single field wider than 62 bits may occupy a limb ALONE:
+            # (v - min) then wraps int64, which is a bijection — equality
+            # and probe/build consistency are preserved (the lookup needs a
+            # consistent total order, not the natural one).
+            acc = 0
+            for i, b in enumerate(bits):
+                if acc == 0 and b > 62:
+                    split = i + 1  # oversized field takes the limb alone
+                    break
+                if acc + b > 62:
+                    split = i
+                    break
+                acc += b
+            else:
+                split = len(bits)
+            lo_bits = bits[split:]
+            if split == 0 or (len(lo_bits) > 1 and sum(lo_bits) > 62):
+                raise JoinBuildError(
+                    f"multi-key join key ranges need {sum(bits)} bits across "
+                    f"{len(bits)} keys; they do not fit two int64 limbs "
+                    "(reorder the keys, pre-aggregate, or split the join)"
+                )
+        shifts = np.zeros(len(bits), dtype=np.int64)
+        for limb_fields in (
+            (range(0, split) if split else []),
+            range(split, len(bits)),
+        ):
+            acc = 0
+            for i in reversed(list(limb_fields)):
+                shifts[i] = acc
+                acc += bits[i]
+        return _NormalizedKey(
+            np.asarray(mins, dtype=np.int64),
+            np.asarray(maxs, dtype=np.int64),
+            shifts,
+            split,
+        )
+
+    def pack_host(self, key_arrays: Sequence[np.ndarray]) -> np.ndarray:
+        """Single-limb packed keys (callers check ``two_limb`` first)."""
+        assert not self.two_limb
+        out = np.zeros(len(key_arrays[0]), dtype=np.int64)
+        for arr, lo, sh in zip(key_arrays, self.mins, self.shifts):
+            out += (arr.astype(np.int64) - lo) << sh
+        return out
+
+    def pack_host_limbs(self, key_arrays: Sequence[np.ndarray]):
+        """(hi|None, lo) packed host keys."""
+        if not self.two_limb:
+            return None, self.pack_host(key_arrays)
+        n = len(key_arrays[0])
+        hi = np.zeros(n, dtype=np.int64)
+        lo_arr = np.zeros(n, dtype=np.int64)
+        for i, (arr, mn, sh) in enumerate(zip(key_arrays, self.mins, self.shifts)):
+            term = (arr.astype(np.int64) - mn) << sh
+            if i < self.split:
+                hi += term
+            else:
+                lo_arr += term
+        return hi, lo_arr
+
+    def pack_device_limbs(self, key_values: Sequence[torch.Tensor], valid: torch.Tensor):
+        """((hi|None, lo), in_range&valid); rows out of range or invalid pack
+        to -1 in every limb."""
+        hi = torch.zeros_like(key_values[0], dtype=torch.int64)
+        lo_arr = torch.zeros_like(key_values[0], dtype=torch.int64)
+        ok = valid
+        for i, (v, mn, mx, sh) in enumerate(
+            zip(key_values, self.mins, self.maxs, self.shifts)
+        ):
+            v64 = v.to(torch.int64)
+            ok = ok & (v64 >= int(mn)) & (v64 <= int(mx))
+            term = (v64 - int(mn)) << int(sh)
+            if i < self.split:
+                hi = hi + term
+            else:
+                lo_arr = lo_arr + term
+        lo_arr = torch.where(ok, lo_arr, torch.full_like(lo_arr, -1))
+        if not self.two_limb:
+            return (None, lo_arr), ok
+        return (torch.where(ok, hi, torch.full_like(hi, -1)), lo_arr), ok
+
+
+_KEY_SENTINEL = np.iinfo(np.int64).max
+_BIG = 1 << 62
+
+
+def _index_bits(n: int) -> int:
+    return max(1, int(n - 1).bit_length()) if n > 1 else 1
+
+
+def _key_codes(keys: torch.Tensor, lo: int, span: int) -> torch.Tensor:
+    """Order- and equality-preserving map of keys into [0, span]: valid build
+    keys in [lo, hi] land on [1, span-1]; anything below-range lands on 0 and
+    anything above-range (incl. the int64-max sentinel) on span.  Out-of-range
+    collisions are harmless — the match test compares the RAW keys.  Clamp
+    BEFORE subtracting: ``sentinel - (lo-1)`` would wrap around int64."""
+    lo1 = lo - 1
+    return keys.clamp(lo1, lo1 + span) - lo1
+
+
+def _iota(n: int, device, dtype=torch.int64) -> torch.Tensor:
+    return torch.arange(n, dtype=dtype, device=device)
+
+
+def _is_integral(t: torch.Tensor) -> bool:
+    return t.dtype == torch.bool or not (t.dtype.is_floating_point or t.dtype.is_complex)
+
+
+def _masked_min_max(values: torch.Tensor, mask: torch.Tensor):
+    v = values.to(torch.int64)
+    return (
+        torch.where(mask, v, torch.full_like(v, _BIG)).min(),
+        torch.where(mask, v, torch.full_like(v, -_BIG)).max(),
+    )
+
+
+def _fit_payload_plan(cols: Dict[str, Tuple], bounds_map):
+    """(PackPlan, fields, bounds) packing every build output column (+ its
+    validity bit) into one int64 word, or None when a column is not an
+    integer, has no bounds, or the word would pass 63 bits."""
+    from ..ops.sortkey import PackPlan
+
+    fields: List[Tuple[str, str]] = []  # ('v'|'n', column name)
+    bounds: List[Tuple[int, int]] = []
+    for name, (values, validity) in cols.items():
+        b = bounds_map.get(name)
+        if not _is_integral(values) or b is None:
+            return None
+        fields.append(("v", name))
+        bounds.append((int(b[0]), int(b[1])))
+        if validity is not None:
+            fields.append(("n", name))
+            bounds.append((0, 1))
+    plan = PackPlan.fit(bounds)
+    if plan is None:
+        return None
+    return plan, tuple(fields), tuple(bounds)
+
+
+@dataclasses.dataclass
+class HashJoinExec:
+    """Device-resident build state + probe application."""
+
+    node: HashJoinNode
+    build_keys: torch.Tensor  # [B] sorted normalized keys (invalid tail: sentinel)
+    build_cols: Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]]  # sorted payloads
+    build_size: int
+    build_tables: Dict[str, object]
+    normalizer: Optional[_NormalizedKey]  # None for single raw int64 key
+    build_valid: Optional[torch.Tensor] = None  # [B] live-slot mask (device builds)
+    # host-known (min, max) of the VALID build keys: enables the packed
+    # single-word probe sorts; None = unknown
+    key_range: Optional[Tuple[int, int]] = None
+    # two-limb composite keys (>62 bits): the HIGH limb rides here and every
+    # key comparison tests both limbs; None for single-limb keys
+    build_keys_hi: Optional[torch.Tensor] = None
+    # null-aware ANTI state (reference: HashJoinNode nullAware): whether any
+    # live build row carried a NULL key, and how many valid-key build rows
+    # exist (an EMPTY build set means NOT IN () = true for every probe row,
+    # null keys included)
+    build_has_null_key: bool = False
+    n_valid_build_keys: int = 0
+    # Fused-probe build payload (see _probe_fused): every build output column
+    # bit-packed into ONE int64 per build row, so the merge sort's cummax
+    # propagates the whole payload to matching probe rows with no gather.
+    bp_plan: Optional[object] = None
+    bp_packed: Optional[torch.Tensor] = None
+    bp_fields: Optional[Tuple] = None
+
+    probe_spans = _not_ported("HashJoinExec.probe_spans", "expansion join")
+    expand = _not_ported("HashJoinExec.expand", "expansion join")
+    init_matched = _not_ported("HashJoinExec.init_matched", "FULL join")
+    full_tail = _not_ported("HashJoinExec.full_tail", "FULL join")
+    probe_split_host = _not_ported("HashJoinExec.probe_split_host", "split dispatch")
+
+    @property
+    def device(self) -> torch.device:
+        return self.build_keys.device
+
+    def state_bytes(self) -> int:
+        """Bytes of the device-resident build state (pool accounting)."""
+        tensors = [self.build_keys, self.build_keys_hi, self.build_valid, self.bp_packed]
+        for values, validity in self.build_cols.values():
+            tensors += [values, validity]
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+    def _prepare_build_payload(self, bounds_map) -> None:
+        """Pack the build's non-key output columns (+ validity bits) into one
+        int64 word per row when their combined bit-width allows — the fused
+        probe then carries the payload through its cummax scan instead of
+        gathering per column.
+
+        ``bounds_map``: per-column inclusive (lo, hi) integer bounds.  Any
+        non-integer or unbounded column disables packing (tier-2 fallback:
+        per-column gathers by candidate index)."""
+        if not self.build_cols:
+            return
+        fitted = _fit_payload_plan(self.build_cols, bounds_map)
+        if fitted is None:
+            return
+        plan, fields, bounds = fitted
+        vals = []
+        for (kind, name), (lo, hi) in zip(fields, bounds):
+            values, validity = self.build_cols[name]
+            if kind == "v":
+                # clamp into bounds: padding slots / garbage-under-null must
+                # not overflow into neighboring fields (they never match)
+                vals.append(values.to(torch.int64).clamp(lo, hi))
+            else:
+                vals.append(validity.to(torch.int64))
+        self.bp_packed = plan.pack(vals)
+        self.bp_plan = plan
+        self.bp_fields = fields
+
+    @staticmethod
+    def _check_node(node: HashJoinNode) -> None:
+        if node.join_type == JoinType.FULL:
+            raise NotImplementedError(
+                "FULL joins (expansion machinery + full_tail) are not ported yet"
+            )
+        if node.join_type not in (
+            JoinType.INNER, JoinType.LEFT, JoinType.LEFT_SEMI, JoinType.ANTI
+        ):
+            raise NotImplementedError(f"join type {node.join_type} is not ported yet")
+        if node.filter is not None:
+            # INNER filters are lowered by _linearize before any build
+            raise NotImplementedError(
+                f"a join filter on {node.join_type.value} joins (left_join_filter "
+                "and the rewrite_* lowerings) is not ported yet"
+            )
+
+    @staticmethod
+    def build(node: HashJoinNode, build_result: Table, device=None) -> "HashJoinExec":
+        """Construct the bridge from the executed build-side pipeline result
+        (a host Table); the sorted build state is placed on ``device``."""
+        from ..device import resolve_device
+
+        device = resolve_device(device)
+        HashJoinExec._check_node(node)
+        key_names = list(node.right_keys)
+        key_arrays = [np.asarray(build_result.columns[k]) for k in key_names]
+
+        # Build rows with a NULL key can never match (standard, non-null-aware
+        # join semantics; reference HashBuild drops them too for inner/semi
+        # joins).
+        keep = None
+        for k in key_names:
+            validity = build_result.validities.get(k)
+            if validity is not None and not validity.all():
+                keep = validity if keep is None else (keep & validity)
+        if keep is not None:
+            key_arrays = [a[keep] for a in key_arrays]
+
+        if len(key_names) == 1:
+            normalizer = None
+            packed_hi, packed = None, key_arrays[0].astype(np.int64)
+        else:
+            normalizer = _NormalizedKey.fit(key_arrays)
+            packed_hi, packed = normalizer.pack_host_limbs(key_arrays)
+
+        if packed_hi is None:
+            order = np.argsort(packed, kind="stable")
+        else:
+            order = np.lexsort((packed, packed_hi))
+        row_order = order if keep is None else np.flatnonzero(keep)[order]
+        keys_sorted = packed[order]
+        keys_hi_sorted = None if packed_hi is None else packed_hi[order]
+
+        if len(keys_sorted) > 1:
+            eq = keys_sorted[1:] == keys_sorted[:-1]
+            if keys_hi_sorted is not None:
+                eq = eq & (keys_hi_sorted[1:] == keys_hi_sorted[:-1])
+        else:
+            eq = np.zeros(0, dtype=bool)
+
+        jt = node.join_type
+        if jt in (JoinType.LEFT_SEMI, JoinType.ANTI):
+            # Only existence matters; deduplicate so any build side works.
+            first = (
+                np.concatenate([[True], ~eq]) if len(keys_sorted) else np.zeros(0, bool)
+            )
+            keys_sorted = keys_sorted[first]
+            if keys_hi_sorted is not None:
+                keys_hi_sorted = keys_hi_sorted[first]
+            row_order = row_order[first]
+        elif eq.any():
+            raise DuplicateBuildKeys(
+                f"the build side of {node.id} holds {int(eq.sum())} duplicate "
+                "key(s): the expansion join (DuplicateBuildKeys -> probe_spans / "
+                "expand) is not ported yet"
+            )
+
+        cols: Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
+        bounds_map: Dict[str, Tuple[int, int]] = {}
+        right_schema = node.right.output_schema
+        for name in node.output_columns:
+            if name in right_schema and name not in key_names:
+                arr = np.asarray(build_result.columns[name])[row_order]
+                validity = build_result.validities.get(name)
+                if len(arr) and (
+                    np.issubdtype(arr.dtype, np.integer) or arr.dtype == np.bool_
+                ):
+                    src = arr if validity is None else arr[validity[row_order]]
+                    if len(src):
+                        bounds_map[name] = (int(src.min()), int(src.max()))
+                v = (
+                    None
+                    if validity is None
+                    else torch.as_tensor(validity[row_order].copy(), device=device)
+                )
+                cols[name] = (torch.as_tensor(arr.copy(), device=device), v)
+        n_valid_keys = len(keys_sorted)
+        key_range = (
+            (int(keys_sorted[0]), int(keys_sorted[-1]))
+            if n_valid_keys and keys_hi_sorted is None
+            else None
+        )
+        exec_ = HashJoinExec(
+            node,
+            torch.as_tensor(keys_sorted.copy(), device=device),
+            cols,
+            len(keys_sorted),
+            dict(build_result.string_tables),
+            normalizer,
+            key_range=key_range,
+            build_keys_hi=(
+                None
+                if keys_hi_sorted is None
+                else torch.as_tensor(keys_hi_sorted.copy(), device=device)
+            ),
+            build_has_null_key=keep is not None,
+            n_valid_build_keys=n_valid_keys,
+        )
+        exec_._prepare_build_payload(bounds_map)
+        return exec_
+
+    @staticmethod
+    def build_from_device(node: HashJoinNode, batches, err_scalar) -> "HashJoinExec":
+        """Construct the bridge from device-resident compacted tile batches —
+        the build data never round-trips to the host; only a handful of scalars
+        (row count, duplicate count, key and column ranges) are fetched, in
+        one read (two for a multi-column key, whose ranges size the packing).
+        """
+        from ..utils.transfer import bucket_of, fetch_tree
+        from .runner import _raise_on_errors
+
+        HashJoinExec._check_node(node)
+        right_schema = node.right.output_schema
+        key_names = list(node.right_keys)
+        semi = node.join_type in (JoinType.LEFT_SEMI, JoinType.ANTI)
+        col_names = (
+            []
+            if semi
+            else [
+                n for n in node.output_columns
+                if n in right_schema and n not in key_names
+            ]
+        )
+        strings: Dict[str, object] = {}
+        for b in batches:
+            for name, col in zip(b.schema.names, b.columns):
+                if col.strings is not None:
+                    strings[name] = col.strings
+        device = batches[0].device
+
+        def concat_col(name):
+            datas, valids = [], []
+            for b in batches:
+                v, val = b.column(name).decode(b.capacity)
+                datas.append(v)
+                valids.append(val)
+            validity = None
+            if any(v is not None for v in valids):
+                validity = torch.cat(
+                    [
+                        v
+                        if v is not None
+                        else torch.ones((b.capacity,), dtype=torch.bool, device=device)
+                        for v, b in zip(valids, batches)
+                    ]
+                )
+            return torch.cat(datas), validity
+
+        mask = torch.cat([b.active_mask() for b in batches])
+        kvalid = mask
+        keys = []
+        for k in key_names:
+            d, val = concat_col(k)
+            keys.append(d.to(torch.int64))
+            if val is not None:
+                kvalid = kvalid & val
+        if len(key_names) > 1:
+            stats = [_masked_min_max(k, kvalid) for k in keys]
+            mins, maxs = fetch_tree(
+                (torch.stack([s[0] for s in stats]), torch.stack([s[1] for s in stats]))
+            )
+            normalizer = _NormalizedKey.fit_from_bounds(mins, maxs)
+            (packed_hi, packed), _ = normalizer.pack_device_limbs(keys, kvalid)
+        else:
+            normalizer = None
+            packed_hi, packed = None, keys[0]
+
+        err = err_scalar
+        if isinstance(err, (tuple, list)):
+            err = torch.zeros((), dtype=torch.int64, device=device)
+            for e in err_scalar:
+                err = err + e
+        sentinel = torch.full_like(packed, _KEY_SENTINEL)
+        packed = torch.where(kvalid, packed, sentinel)
+        n_rows = packed.shape[0]
+        orig = _iota(n_rows, device)
+        if packed_hi is None:
+            s_inv, s_key, s_orig = sort_operands((~kvalid, packed, orig), num_keys=2)
+            s_hi = None
+        else:
+            packed_hi = torch.where(kvalid, packed_hi, sentinel)
+            s_inv, s_hi, s_key, s_orig = sort_operands(
+                (~kvalid, packed_hi, packed, orig), num_keys=3
+            )
+        s_valid = ~s_inv
+        prev_eq = s_valid & torch.roll(s_valid, 1) & (s_key == torch.roll(s_key, 1))
+        if s_hi is not None:
+            prev_eq = prev_eq & (s_hi == torch.roll(s_hi, 1))
+        if n_rows:
+            prev_eq[0] = False
+        kmin, kmax = _masked_min_max(s_key, s_valid)
+        n_live = mask.sum()
+        cols: Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
+        int_cols: List[str] = []
+        col_stats: List[torch.Tensor] = []
+        if semi:
+            keep = s_valid & ~prev_eq
+            s_key = torch.where(keep, s_key, sentinel)
+            if s_hi is None:
+                s_key = torch.sort(s_key, stable=True).values
+            else:
+                s_hi, s_key = sort_operands(
+                    (torch.where(keep, s_hi, sentinel), s_key), num_keys=2
+                )
+            n_valid = keep.sum()
+            dup = torch.zeros_like(n_valid)
+        else:
+            n_valid = s_valid.sum()
+            dup = prev_eq.sum()
+            for name in col_names:
+                data, validity = concat_col(name)
+                g = data.index_select(0, s_orig)
+                gv = None if validity is None else validity.index_select(0, s_orig)
+                cols[name] = (g, gv)
+                # per-integer-column (min, max) over live rows: feeds the
+                # fused probe's packed payload, fetched with the counts below
+                if _is_integral(g):
+                    int_cols.append(name)
+                    col_stats.extend(
+                        _masked_min_max(g, s_valid if gv is None else (s_valid & gv))
+                    )
+        stats_vec = (
+            torch.stack(col_stats)
+            if col_stats
+            else torch.zeros((0,), dtype=torch.int64, device=device)
+        )
+        n_valid, dup, err, kmin, kmax, n_live, st = fetch_tree(
+            (n_valid, dup, err, kmin, kmax, n_live, stats_vec)
+        )  # the build's one host read
+        _raise_on_errors(int(err))
+        if int(dup):
+            raise DuplicateBuildKeys(
+                f"the build side of {node.id} holds {int(dup)} duplicate key(s): "
+                "the expansion join (DuplicateBuildKeys -> probe_spans / expand) "
+                "is not ported yet"
+            )
+        n = int(n_valid)
+        bounds_map = {
+            nm: (int(st[2 * i]), int(st[2 * i + 1]))
+            for i, nm in enumerate(int_cols)
+            if n and st[2 * i] <= st[2 * i + 1]
+        }
+        bucket = min(bucket_of(max(n, 1)), n_rows)
+        valid = _iota(bucket, device) < n
+        cut_sentinel = sentinel[:bucket]
+        keys_cut = torch.where(valid, s_key[:bucket], cut_sentinel)
+        keys_hi_cut = (
+            None if s_hi is None else torch.where(valid, s_hi[:bucket], cut_sentinel)
+        )
+        out_cols = {
+            name: (g[:bucket].clone(), None if gv is None else gv[:bucket].clone())
+            for name, (g, gv) in cols.items()
+        }
+        exec_ = HashJoinExec(
+            node, keys_cut, out_cols, bucket, strings, normalizer, valid,
+            key_range=((int(kmin), int(kmax)) if n and keys_hi_cut is None else None),
+            build_keys_hi=keys_hi_cut,
+            build_has_null_key=int(n_live) > n,
+            n_valid_build_keys=n,
+        )
+        if bounds_map and n and not semi:
+            exec_._prepare_build_payload(bounds_map)
+        return exec_
+
+    # ---- sort-merge lookup --------------------------------------------
+    def _lookup_sorted(
+        self,
+        probe_keys: torch.Tensor,
+        probe_live: torch.Tensor,
+        key_ok: torch.Tensor,
+        probe_keys_hi: Optional[torch.Tensor] = None,
+    ):
+        """Match probe keys against the sorted build side.
+
+        Returns (perm, pos, hit, live) of length cap, in **join-key order with
+        live rows first**: perm[i] is the probe-row index occupying output slot
+        i.  Emitting key-sorted output (instead of restoring probe order) costs
+        the same second sort but leaves the batch pre-grouped for downstream
+        aggregations — the engine's analog of the reference's streaming
+        aggregation over sorted keys (velox/exec/StreamingAggregation.h).
+        """
+        cap = probe_keys.shape[0]
+        B = self.build_size
+        dev = probe_keys.device
+        jt = self.node.join_type
+        if B == 0:
+            nothing = torch.zeros((cap,), dtype=torch.bool, device=dev)
+            keeps_all = jt in (JoinType.ANTI, JoinType.LEFT)
+            return (
+                _iota(cap, dev),
+                torch.zeros((cap,), dtype=torch.int64, device=dev),
+                nothing,
+                probe_live if keeps_all else nothing,
+            )
+        all_keys = torch.cat([self.build_keys, probe_keys])
+        n_all = B + cap
+        idxb = _index_bits(max(B, cap))
+        orig = torch.cat([_iota(B, dev), _iota(cap, dev)])
+        is_probe = torch.cat(
+            [
+                torch.zeros((B,), dtype=torch.int64, device=dev),
+                torch.ones((cap,), dtype=torch.int64, device=dev),
+            ]
+        )
+        packed = False
+        if self.key_range is not None:
+            # packed fast path: key codes (bounded by the build key range),
+            # the probe flag, and the per-class row index share one int64
+            lo, hi = self.key_range
+            span = hi - lo + 2
+            packed = int(span).bit_length() + 1 + idxb <= 63
+        if packed:
+            code = _key_codes(all_keys, lo, span)
+            merged = (code << (1 + idxb)) | (is_probe << idxb) | orig
+            s = torch.sort(merged, stable=True).values
+            o_s = s & ((1 << idxb) - 1)
+            p_s = (s >> idxb) & 1
+            # RAW-key equality: immune to out-of-range code collisions
+            k_s = _take(probe_keys, o_s)
+            h_s = None
+        elif self.build_keys_hi is not None:
+            # two-limb composite keys (>62 bits): sort by (hi, lo, is_probe)
+            # — matches the build's lexsort order — and the equality test
+            # covers BOTH limbs
+            all_hi = torch.cat([self.build_keys_hi, probe_keys_hi])
+            h_s, k_s, p_s, o_s = sort_operands(
+                (all_hi, all_keys, is_probe, orig), num_keys=3
+            )
+        else:
+            # sort by (key, is_probe): build rows precede equal probe keys
+            k_s, p_s, o_s = sort_operands((all_keys, is_probe, orig), num_keys=2)
+            h_s = None
+        bidx = torch.where(p_s == 0, o_s, torch.full_like(o_s, -1))
+        last_build = torch.cummax(bidx, 0).values
+        cand = last_build.clamp(0, B - 1)
+        hit = (p_s == 1) & (last_build >= 0) & (_take(self.build_keys, cand) == k_s)
+        if h_s is not None:
+            hit = hit & (_take(self.build_keys_hi, cand) == h_s)
+        if self.build_valid is not None:
+            # device builds pad to a bucket; sentinel tail slots never match
+            hit = hit & _take(self.build_valid, cand)
+        # null/out-of-range probe keys never match
+        ok_s = _take(key_ok, o_s)
+        hit = hit & ok_s
+        # classify: live probe rows first (key-ordered), dead probe rows next,
+        # build rows last; one stable flag sort compacts all three classes
+        live_s = (p_s == 1) & _take(probe_live, o_s)
+        if jt in (JoinType.INNER, JoinType.LEFT_SEMI):
+            live_s = live_s & hit
+        elif jt == JoinType.ANTI:
+            live_s = live_s & ~hit
+            if self.node.null_aware and self.n_valid_build_keys > 0:
+                # NOT IN over a non-empty set: a NULL probe key compares
+                # unknown against every element -> the row never passes
+                live_s = live_s & ok_s
+        # LEFT: probe-preserving — every live probe row stays live
+        flag = torch.where(p_s == 0, 2, torch.where(live_s, 0, 1)).to(torch.uint8)
+        perm2 = torch.sort(flag, stable=True).indices[:cap]
+        return (
+            o_s.index_select(0, perm2),
+            cand.index_select(0, perm2),
+            hit.index_select(0, perm2),
+            live_s.index_select(0, perm2),
+        )
+
+    def _probe_keys(self, batch: Batch):
+        """((hi|None, lo) probe key limbs, no-NULL-key mask, that mask
+        narrowed to keys inside the build's ranges, raw key values)."""
+        cap = batch.capacity
+        probe_vals: List[torch.Tensor] = []
+        not_null = torch.ones((cap,), dtype=torch.bool, device=batch.device)
+        for k in self.node.left_keys:
+            values, validity = batch.column(k).decode(cap)
+            probe_vals.append(values)
+            if validity is not None:
+                not_null = not_null & validity
+        if self.normalizer is None:
+            return (None, probe_vals[0].to(torch.int64)), not_null, not_null, probe_vals
+        limbs, key_ok = self.normalizer.pack_device_limbs(probe_vals, not_null)
+        return limbs, not_null, key_ok, probe_vals
+
+    # ---- fused probe ----------------------------------------------------
+    def _probe_fused(self, batch: Batch) -> Optional[Batch]:
+        """ONE merge sort + one cummax scan.
+
+          1. packs (key code | is_probe | live | key-valid | ok | low) into
+             one int64 word per row — build rows put their ENTIRE bit-packed
+             payload (bp_packed) in the low field, probe rows their row id;
+          2. sorts ONCE; the probe's output columns follow through the sort's
+             permutation (build slots hold the build key so downstream
+             presorted grouping sees intact runs);
+          3. a cummax propagates the last build word to each probe row: the
+             candidate's key code AND payload arrive in one scan — the
+             reference's equivalent is its vectorized hash-table probe
+             (velox/exec/HashTable.cpp:360);
+          4. emits the batch in MERGED order (capacity B + cap) with build
+             slots masked dead — no reorder sort; downstream operators handle
+             selection masks and the output stays key-sorted for the
+             presorted-aggregation path.
+
+        Returns None (statically) when preconditions fail; the caller falls
+        back to the classification-sort path."""
+        plan = self._fused_static(batch.capacity)
+        if plan is None:
+            return None
+        word, ops, vbits, meta = self._fused_pre(batch, plan)
+        s, perm = torch.sort(word, stable=True)
+        moved = tuple(op.index_select(0, perm) for op in tuple(ops) + tuple(vbits))
+        return self._fused_post(plan, s, moved, meta, bool(vbits))
+
+    def _fused_static(self, cap: int):
+        """Static eligibility + bit-layout plan for the fused probe.
+        None = not eligible."""
+        node = self.node
+        B = self.build_size
+        if B == 0 or self.key_range is None:
+            return None
+        if self.build_keys_hi is not None:
+            return None
+        left_schema = node.left.output_schema
+        right_key_to_left = dict(zip(node.right_keys, node.left_keys))
+        out_build = [
+            n
+            for n in node.output_columns
+            if n in self.build_cols
+            and not (n in left_schema or n in right_key_to_left)
+        ]
+        idxb = _index_bits(cap)
+        tier1 = (not out_build) or (self.bp_plan is not None)
+        if tier1:
+            pb = self.bp_plan.total_bits if (out_build and self.bp_plan) else 0
+            L = max(idxb, pb)
+        else:
+            L = max(idxb, _index_bits(B))
+        lo, hi = self.key_range
+        span = hi - lo + 2
+        kb = int(span).bit_length()
+        if kb + 4 + L > 63:
+            if tier1 and out_build:
+                # retry without the packed payload (tier 2 gathers instead)
+                tier1 = False
+                L = max(idxb, _index_bits(B))
+                if kb + 4 + L > 63:
+                    return None
+            else:
+                return None
+        # the left columns the output needs
+        needed_left: List[str] = []
+        for name in node.output_schema.names:
+            ln = name if name in left_schema else right_key_to_left.get(name)
+            if ln is not None and ln not in needed_left:
+                needed_left.append(ln)
+        return {
+            "cap": cap,
+            "B": B,
+            "tier1": tier1,
+            "L": L,
+            "lo": lo,
+            "span": span,
+            "out_build": out_build,
+            "needed_left": needed_left,
+            "left_schema": left_schema,
+            "right_key_to_left": right_key_to_left,
+        }
+
+    def probe_output_capacity(self, cap: int) -> int:
+        """Output capacity of probe() for a probe batch of capacity cap."""
+        if self._fused_static(cap) is not None:
+            return self.build_size + cap
+        return cap
+
+    def _fused_pre(self, batch: Batch, plan):
+        """Everything before the fused probe's sort: packed words + the probe
+        columns that follow the sort.  Returns (word, ops, vbits_tuple, meta)
+        with meta: left name -> (op index, validity bit | -1, strings)."""
+        node = self.node
+        cap, B, L = plan["cap"], plan["B"], plan["L"]
+        tier1 = plan["tier1"]
+        lo, span = plan["lo"], plan["span"]
+        out_build = plan["out_build"]
+        dev = batch.device
+
+        # ---- probe keys + masks
+        (_, probe_keys), vb, ok, _ = self._probe_keys(batch)
+        live = batch.active_mask()
+
+        code_b = _key_codes(self.build_keys, lo, span)
+        pcode = _key_codes(probe_keys, lo, span)
+        ok = ok & (pcode >= 1) & (pcode <= span - 1)
+
+        if tier1 and out_build:
+            low_b = self.bp_packed
+        elif tier1:
+            low_b = torch.zeros((B,), dtype=torch.int64, device=dev)
+        else:
+            low_b = _iota(B, dev)
+        word_b = (code_b << (4 + L)) | low_b
+        flags = 8 | (live.to(torch.int64) << 2) | (vb.to(torch.int64) << 1) | ok.to(torch.int64)
+        word_p = (((pcode << 4) | flags) << L) | _iota(cap, dev)
+        word = torch.cat([word_b, word_p])
+
+        # ---- carried probe columns (the left side of every output column)
+        ops: List[torch.Tensor] = []
+        meta = {}
+        vbits = None
+        bit = 0
+        single_key = self.normalizer is None
+        for ln in plan["needed_left"]:
+            col = batch.column(ln)
+            values, validity = col.decode(cap)
+            if single_key and ln == node.left_keys[0]:
+                # build slots keep their own key value so runs of equal keys
+                # stay contiguous through dead slots (presorted grouping)
+                pad = self.build_keys.to(values.dtype)
+            else:
+                pad = torch.zeros((B,), dtype=values.dtype, device=dev)
+            ops.append(torch.cat([pad, values]))
+            vbit = -1
+            if validity is not None:
+                add = torch.cat(
+                    [torch.zeros((B,), dtype=torch.int64, device=dev), validity.to(torch.int64)]
+                )
+                vbits = add << bit if vbits is None else vbits | (add << bit)
+                vbit = bit
+                bit += 1
+            meta[ln] = (len(ops) - 1, vbit, col.strings)
+        return word, tuple(ops), (vbits,) if vbits is not None else (), meta
+
+    def _fused_post(self, plan, s: torch.Tensor, payloads, meta, has_vbits: bool):
+        """Everything after the fused probe's sort: the cummax candidate
+        scan + output-column assembly in merged order."""
+        node = self.node
+        jt = node.join_type
+        cap, B, L = plan["cap"], plan["B"], plan["L"]
+        tier1 = plan["tier1"]
+        left_schema = plan["left_schema"]
+        right_key_to_left = plan["right_key_to_left"]
+        out_vbits = payloads[-1] if has_vbits else None
+
+        # ---- one scan: candidate build word per probe row
+        is_probe = ((s >> (3 + L)) & 1).to(torch.bool)
+        bmark = torch.where(is_probe, torch.full_like(s, -1), s)
+        lastb = torch.cummax(bmark, 0).values
+        own_code = s >> (4 + L)
+        cand_code = lastb >> (4 + L)  # -1 rows: negative, never equal
+        live_s = ((s >> (2 + L)) & 1).to(torch.bool)
+        vb_s = ((s >> (1 + L)) & 1).to(torch.bool)
+        ok_s = ((s >> L) & 1).to(torch.bool)
+        hit = is_probe & ok_s & (lastb >= 0) & (cand_code == own_code)
+
+        if jt in (JoinType.INNER, JoinType.LEFT_SEMI):
+            live_out = live_s & hit
+        elif jt == JoinType.ANTI:
+            live_out = live_s & ~hit
+            if node.null_aware and self.n_valid_build_keys > 0:
+                # NOT IN over a non-empty set: a NULL probe key compares
+                # unknown against every element -> never passes (out-of-range
+                # NON-null keys do pass — they are definitely not in the set)
+                live_out = live_out & vb_s
+        else:  # LEFT: probe-preserving
+            live_out = live_s
+        live_out = live_out & is_probe
+
+        # ---- output columns, merged order
+        lastb_low = lastb & ((1 << L) - 1)
+        n_all = B + cap
+        out_cols: List[Column] = []
+        for name, dtype in zip(node.output_schema.names, node.output_schema.types):
+            if name in left_schema:
+                i, vbit, strings = meta[name]
+                gv = None if vbit < 0 else ((out_vbits >> vbit) & 1).to(torch.bool)
+                out_cols.append(Column.flat(payloads[i], dtype, gv, strings))
+            elif name in right_key_to_left:
+                i, _, _ = meta[right_key_to_left[name]]
+                validity = hit if jt == JoinType.LEFT else None
+                out_cols.append(
+                    Column.flat(payloads[i].to(dtype.device_dtype), dtype, validity)
+                )
+            else:  # build column
+                values, validity = self.build_cols[name]
+                if tier1:
+                    fi = self.bp_fields.index(("v", name))
+                    g = self.bp_plan.unpack(lastb_low, fi).to(dtype.device_dtype)
+                    gv = None
+                    if ("n", name) in self.bp_fields:
+                        ni = self.bp_fields.index(("n", name))
+                        gv = self.bp_plan.unpack(lastb_low, ni) != 0
+                else:
+                    g = _take(values, lastb_low)
+                    gv = None if validity is None else _take(validity, lastb_low)
+                if jt == JoinType.LEFT:
+                    gv = hit if gv is None else (gv & hit)
+                out_cols.append(Column.flat(g, dtype, gv, self.build_tables.get(name)))
+        return Batch(
+            tuple(out_cols),
+            torch.full((), n_all, dtype=torch.int32, device=s.device),
+            live_out,
+            node.output_schema,
+            n_all,
+        )
+
+    # ---- probe ---------------------------------------------------------
+    def probe(self, batch: Batch) -> Batch:
+        node = self.node
+        cap = batch.capacity
+        dev = batch.device
+        left_schema = node.left.output_schema
+        jt = node.join_type
+        if node.null_aware and self.build_has_null_key:
+            # NOT IN (..., NULL): x NOT IN S is never TRUE when S holds a
+            # NULL (it is FALSE or UNKNOWN) — the whole result is empty
+            out_cols = [batch.column(n) for n in node.output_schema.names]
+            return Batch(
+                tuple(out_cols),
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.zeros((cap,), dtype=torch.bool, device=dev),
+                node.output_schema,
+                cap,
+            )
+
+        fused = self._probe_fused(batch)
+        if fused is not None:
+            return fused
+
+        (probe_keys_hi, probe_keys), _, key_ok, probe_vals = self._probe_keys(batch)
+        perm, pos, hit, live = self._lookup_sorted(
+            probe_keys, batch.active_mask(), key_ok, probe_keys_hi
+        )
+
+        out_cols: List[Column] = []
+        right_key_to_left = dict(zip(node.right_keys, node.left_keys))
+        for name, dtype in zip(node.output_schema.names, node.output_schema.types):
+            if name in left_schema:
+                col = batch.column(name)
+                values, validity = col.decode(cap)
+                g = _take(values, perm)
+                gv = None if validity is None else _take(validity, perm)
+                out_cols.append(Column.flat(g, dtype, gv, col.strings))
+            elif name in right_key_to_left:
+                # a right key equals the corresponding left key on matched rows
+                left_name = right_key_to_left[name]
+                values = _take(
+                    probe_vals[list(node.left_keys).index(left_name)], perm
+                )
+                validity = hit if jt == JoinType.LEFT else None
+                out_cols.append(
+                    Column.flat(values.to(dtype.device_dtype), dtype, validity)
+                )
+            else:
+                values, validity = self.build_cols[name]
+                if self.build_size == 0:
+                    gathered = torch.zeros((cap,), dtype=dtype.device_dtype, device=dev)
+                    gv = torch.zeros((cap,), dtype=torch.bool, device=dev)
+                else:
+                    gathered = _take(values, pos)
+                    gv = None if validity is None else _take(validity, pos)
+                if jt == JoinType.LEFT:
+                    gv = hit if gv is None else (gv & hit)
+                out_cols.append(
+                    Column.flat(gathered, dtype, gv, self.build_tables.get(name))
+                )
+        # rows were re-ordered: live rows form a key-sorted prefix; the batch's
+        # length/selection are rebuilt from the lookup's liveness
+        return Batch(
+            tuple(out_cols),
+            torch.full((), cap, dtype=torch.int32, device=dev),
+            live,
+            node.output_schema,
+            cap,
+        )

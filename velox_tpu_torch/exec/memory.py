@@ -5,7 +5,7 @@ Reference: velox/common/memory/MemoryPool.h:109 (hierarchical pools with
 limits/tracking) and MemoryArbitrator.h:43 (reclaimers).
 
 The pool tree tracks *logical* byte reservations of device-resident state
-(scan tiles, aggregation carries).  When a reservation would exceed a pool's
+(scan tiles, join builds, aggregation carries and their merge).  When a reservation would exceed a pool's
 limit, registered reclaimers run largest child first.  Nothing registers a
 reclaimer yet: spilling (``Spiller``) comes with the memory / spill slice, and
 until then an over-limit reservation raises ``MemoryPoolError``.

@@ -114,7 +114,7 @@ class EvalContext:
             return self._special(expr)
         if isinstance(expr, DictLookup):
             child = self.evaluate(expr.child)
-            lookup = torch.as_tensor(expr.values.array, device=self.device)
+            lookup = expr.values.on(self.device)
             idx = child.values.to(torch.int32)
             validity, errors = child.validity, child.errors
             if expr.child2 is not None:

@@ -131,12 +131,23 @@ class Special(Expr):
 
 class HostArray:
     """A host numpy array riding in an expression as static metadata
-    (hashable by identity, like StringTable)."""
+    (hashable by identity, like StringTable).  ``on(device)`` uploads it once
+    per device: a dictionary of millions of strings makes the table large, and
+    every tile of every run gathers through it."""
 
-    __slots__ = ("array",)
+    __slots__ = ("array", "_on")
 
     def __init__(self, array):
         self.array = array
+        self._on = {}
+
+    def on(self, device):
+        import torch
+
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(self.array, device=device)
+        return self._on[key]
 
     def __hash__(self):
         return id(self)

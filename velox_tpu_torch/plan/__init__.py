@@ -3,6 +3,8 @@ from .nodes import (
     AggregationNode,
     AggregationStep,
     FilterNode,
+    HashJoinNode,
+    JoinType,
     LimitNode,
     OrderByNode,
     PlanNode,
@@ -17,6 +19,8 @@ __all__ = [
     "AggregationNode",
     "AggregationStep",
     "FilterNode",
+    "HashJoinNode",
+    "JoinType",
     "LimitNode",
     "OrderByNode",
     "PlanBuilder",

@@ -6,8 +6,8 @@ expressions, method chaining for operators, automatic projection of aggregate
 arguments, automatic string-literal binding against scan dictionaries.
 
 Ported so far: ``table_scan``, ``values``, ``filter``, ``project``,
-``aggregation`` (plain aggregates), ``orderby``, ``topn``, ``limit``,
-``build``.  Every other method of the reference's class raises
+``aggregation`` (plain aggregates), ``hash_join``, ``orderby``, ``topn``,
+``limit``, ``build``.  Every other method of the reference's class raises
 ``NotImplementedError`` naming the slice that brings it.
 """
 
@@ -25,6 +25,8 @@ from .nodes import (
     AggregationNode,
     AggregationStep,
     FilterNode,
+    HashJoinNode,
+    JoinType,
     LimitNode,
     OrderByNode,
     PlanNode,
@@ -188,7 +190,8 @@ class PlanBuilder:
             ):
                 raise NotImplementedError(
                     f"aggregate {item!r}: distinct and sketch aggregates are "
-                    "not ported yet; they come with the joins and sketch slices"
+                    "not ported yet; they come with the remaining TPC-H plans "
+                    "and the sketch slice"
                 )
             if fn == "count" and argtext in ("*", ""):
                 args: List[str] = []
@@ -275,20 +278,52 @@ class PlanBuilder:
         self.node = LimitNode(self.node, offset, count)
         return self
 
+    def hash_join(
+        self,
+        right: Union["PlanBuilder", PlanNode],
+        left_keys: Sequence[str],
+        right_keys: Sequence[str],
+        output: Sequence[str],
+        join_type: Union[str, JoinType] = JoinType.INNER,
+        filter: Optional[str] = None,
+        null_aware: bool = False,
+    ) -> "PlanBuilder":
+        right_node = right.node if isinstance(right, PlanBuilder) else right
+        node = HashJoinNode(
+            self.node,
+            right_node,
+            JoinType(join_type),
+            tuple(left_keys),
+            tuple(right_keys),
+            tuple(output),
+            null_aware=null_aware,
+        )
+        if filter:
+            combined = RowType(
+                list(self.schema.names) + list(right_node.output_schema.names),
+                list(self.schema.types) + list(right_node.output_schema.types),
+            )
+            # bind string literals against BOTH sides' dictionaries (the
+            # filter evaluates over probe ++ build columns)
+            tables = PlanBuilder(self.node)._string_tables()
+            tables.update(PlanBuilder(right_node)._string_tables())
+            node.filter = bind_string_literals(parse_expr(filter, combined), tables)
+        self.node = node
+        return self
+
     def build(self) -> PlanNode:
         return self.node
 
     # ---- later slices ----------------------------------------------------
-    hash_join = _later("hash_join", "joins (TPC-H Q3)")
-    cross_join = _later("cross_join", "joins (TPC-H Q3)")
-    nested_loop_join = _later("nested_loop_join", "joins (TPC-H Q3)")
-    union_all = _later("union_all", "joins (TPC-H Q3)")
-    merge_exchange = _later("merge_exchange", "joins (TPC-H Q3)")
+    cross_join = _later("cross_join", "expansion joins")
+    nested_loop_join = _later("nested_loop_join", "expansion joins")
+    union_all = _later("union_all", "remaining TPC-H plans")
+    merge_exchange = _later("merge_exchange", "remaining TPC-H plans")
     window = _later("window", "window")
     row_number = _later("row_number", "window")
     topn_row_number = _later("topn_row_number", "window")
     mark_distinct = _later("mark_distinct", "window")
-    enforce_single_row = _later("enforce_single_row", "joins (TPC-H Q3)")
+    enforce_single_row = _later("enforce_single_row", "remaining TPC-H plans")
     unnest = _later("unnest", "complex types")
     group_id = _later("group_id", "complex types")
     assign_unique_id = _later("assign_unique_id", "complex types")

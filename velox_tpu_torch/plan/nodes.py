@@ -6,9 +6,9 @@ plans are *fully specified physical plans* — no SQL, no optimizer; an
 integrator (or PlanBuilder) constructs the tree.
 
 This package has the nodes its executor runs so far: TableScan, Values,
-Filter, Project, Aggregation, and the finishers OrderBy / TopN / Limit.  Joins,
-unnest, group-id, window, exchange and table-write nodes come with the slices
-that execute them.
+Filter, Project, Aggregation, HashJoin, and the finishers OrderBy / TopN /
+Limit.  Unnest, group-id, window, exchange and table-write nodes come with the
+slices that execute them.
 
 Nodes carry typed expressions from ``expr``; output schemas are computed
 bottom-up at construction.
@@ -178,3 +178,52 @@ class LimitNode(PlanNode):
     def __post_init__(self):
         self.sources = (self.source,)
         self.output_schema = self.source.output_schema
+
+
+class JoinType(str, Enum):
+    """Reference: core::JoinType (PlanNode.h:1271-1310)."""
+
+    INNER = "inner"
+    LEFT = "left"
+    RIGHT = "right"
+    FULL = "full"
+    LEFT_SEMI = "left_semi"
+    RIGHT_SEMI = "right_semi"
+    ANTI = "anti"
+
+
+@dataclasses.dataclass
+class HashJoinNode(PlanNode):
+    """Hash join; right side is the build side (reference: PlanNode.h:1476)."""
+
+    left: PlanNode
+    right: PlanNode
+    join_type: JoinType
+    left_keys: Tuple[str, ...]
+    right_keys: Tuple[str, ...]
+    output_columns: Tuple[str, ...]  # names drawn from left ++ right schemas
+    filter: Optional[Expr] = None
+    # NOT IN three-valued-NULL semantics (reference: HashJoinNode nullAware,
+    # PlanNode.h:1476): a NULL build key empties the result; NULL probe keys
+    # never pass once the build set is non-empty
+    null_aware: bool = False
+    id: str = dataclasses.field(default_factory=lambda: _next_id("hashjoin"))
+
+    def __post_init__(self):
+        if self.null_aware and self.join_type != JoinType.ANTI:
+            raise ValueError(
+                "null_aware is only supported on ANTI joins (NOT IN); the "
+                "reference also allows left-semi-project, which this engine "
+                "expresses as IN-list predicates instead"
+            )
+        self.sources = (self.left, self.right)
+        ls, rs = self.left.output_schema, self.right.output_schema
+        types = []
+        for c in self.output_columns:
+            if c in ls:
+                types.append(ls.type_of(c))
+            elif c in rs:
+                types.append(rs.type_of(c))
+            else:
+                raise KeyError(f"join output column {c!r} not in either input")
+        self.output_schema = RowType(self.output_columns, types)

@@ -32,3 +32,13 @@ def bucket_of(n: int) -> int:
     while b < n:
         b <<= 1
     return b
+
+
+def fetch_prefix(arrays, n: int):
+    """Fetch the first ``n`` rows of same-length device tensors as numpy
+    arrays: the slice is cut on the device, so the bytes copied scale with
+    the result and not with the static tile capacity.  (The JAX package cuts
+    to a power-of-two bucket first so that its compiled slicers are few; an
+    eager slice needs no bucket.)"""
+    n = max(int(n), 0)
+    return [fetch_tree(a[:n]) for a in arrays]
