@@ -30,6 +30,9 @@ data is the same in every run.  The script
 6. times the primitives the sort-mode paths are made of (``torch.sort``,
    ``index_select`` through its permutation, ``cumsum``, ``cummax`` of 2^24
    int64), each beside its byte bound;
+   ``ops/segmented.py last_flagged``, which computes on the sort-mode paths
+   what the JAX package computes with ``cummax`` / ``cummin``, is timed
+   beside ``cummax`` on the same input;
 7. runs TPC-H Q3 and Q13 at SF ``sf`` through
    ``LocalExecutor``: joins with a unique build side, sort-mode grouping with
    the device-resident carry, the device TopN; row-exact against the numpy
@@ -39,8 +42,23 @@ data is the same in every run.  The script
    more with tiles of 2^22 rows, for its rows only, so that its build side's
    carry merge is held against the oracle too.  These paths launch none of
    the hand-written kernels (the JAX package has no Pallas kernel on them);
-8. prints the ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+8. runs the other eighteen TPC-H plans (``tpch_plans``: one line each) and
+   all 22 SQL texts through the SQL front end (``tpch_sql``: one line each;
+   expansion joins, scalar subqueries, filtered LEFT and semi / anti joins,
+   distinct counts; the texts of ``SQL_AT_SF1`` at SF 1 when ``--sf`` is
+   larger), each row-exact against the oracle, with the build time,
+   every expansion's output bucket and the device's peak memory, and timed:
+   ``query_ms`` is the whole query from host tables (executor construction,
+   which runs every build side and barrier, and the run; what ``run_sql``
+   costs), median of 3 (one run past ``LONG_QUERY_S``), with its device
+   time from ``torch.profiler``; a plan's line also has ``engine_ms`` of its
+   last pipeline over
+   device-resident tiles, median of ``--runs``, as for Q3.  The tables are
+   generated once, with every column any query reads.  A plan whose
+   aggregation takes the piece path launches ``grouped_piece_sums`` as Q1
+   does (``k2_launches``);
+9. prints a ``summary`` line (every query's time in one place), the
+   ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line; any failure ends the run with a traceback
 and a non-zero exit code.  ``bound_ms`` is bytes moved (each input read once,
@@ -64,6 +82,17 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 DEVICE = "cuda"  # where the script itself allocates; the port's entry points default to it
+WHOLE_RUNS = 3  # whole-query runs from host tables a median is taken of
+# a query whose first whole run takes longer is timed by that run alone (no
+# more runs, no profiled run): TPC-H Q21's plan at SF 10 took 47 s with an
+# H100 (its build side's host merge of about 60 M partial groups), and three
+# more runs would be a fifth of the script's time
+LONG_QUERY_S = 10.0
+# SQL texts whose planner keeps FROM order, so that a join's build side
+# repeats its keys and is sorted on the host (an expansion join over up to
+# 60 M lineitem rows).  Their hand-built plans run at ``--sf``; the texts run
+# at SF 1 when ``--sf`` is larger, to keep the script inside its time.
+SQL_AT_SF1 = (3, 5, 7, 8, 10, 13, 18, 21)
 
 
 def say(phase: str, **fields) -> None:
@@ -415,17 +444,38 @@ def drive_ops(tiles6, ex1, tiles1, q1_result, q6_exact: int):
     return count
 
 
-def generate_tables(num: int, sf: float):
-    """(tables, seconds per table) of one query, each table timed alone."""
-    from velox_tpu_torch.connectors.tpch import load_table
-    from velox_tpu_torch.connectors.tpch.queries import QUERY_COLUMNS
+class TpchTables:
+    """The TPC-H tables at one scale factor, each generated once, on first
+    use, with every column any of the 22 queries reads (the generator seeds
+    each column from its table, name and scale factor, so a column does not
+    depend on which others are generated); a query gets views of its own
+    columns."""
 
-    tables, seconds = {}, {}
-    for name, cols in QUERY_COLUMNS[num].items():
-        t0 = time.perf_counter()
-        tables[name] = load_table(name, sf, cols)
-        seconds[name] = time.perf_counter() - t0
-    return tables, seconds
+    def __init__(self, sf: float):
+        from velox_tpu_torch.connectors.tpch.queries import QUERY_COLUMNS
+
+        self.sf = sf
+        self.columns = {}
+        for cols in QUERY_COLUMNS.values():
+            for name, names in cols.items():
+                self.columns.setdefault(name, set()).update(names)
+        self._tables = {}
+        self.generate_s = {}
+
+    def table(self, name: str):
+        from velox_tpu_torch.connectors.tpch import SCHEMAS, load_table
+
+        if name not in self._tables:
+            t0 = time.perf_counter()
+            cols = [c for c in SCHEMAS[name].names if c in self.columns[name]]
+            self._tables[name] = load_table(name, self.sf, cols)
+            self.generate_s[name] = time.perf_counter() - t0
+        return self._tables[name]
+
+    def for_query(self, num: int):
+        from velox_tpu_torch.connectors.tpch.queries import QUERY_COLUMNS
+
+        return {name: self.table(name).select(cols) for name, cols in QUERY_COLUMNS[num].items()}
 
 
 def plan_query(num: int, tables, tile_rows: int, plan=None):
@@ -439,54 +489,73 @@ def plan_query(num: int, tables, tile_rows: int, plan=None):
 
     t0 = time.perf_counter()
     if plan is None:
-        plan = build_query(num, tables)
+        plan = build_query(num, tables, device=DEVICE)  # fragments run on the card
+    torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ex = LocalExecutor(plan, tile_rows=tile_rows)  # device=None: the CUDA device
+    ex = LocalExecutor(plan, tile_rows=tile_rows, device=DEVICE)
     torch.cuda.synchronize()
     executor_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tiles = ex.device_tiles()
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
-    agg = ex.agg_exec
-    return ex, tiles, plan, dict(
+    rep = dict(
         rows=ex.source_table.num_rows,
         rows_in={name: t.num_rows for name, t in tables.items()},
         tiles=len(tiles), capacity=ex.capacity, plan_s=plan_s, executor_s=executor_s,
-        build_s=ex.build_seconds, upload_s=upload_s, kind=ex.kind, mode=agg.mode,
-        num_groups=agg.num_groups, piece_path=ex.use_piece,
-        presorted=bool(getattr(agg.grouping, "presorted", False)),
-        keys=[k.name for k in agg.key_infos],
-        accumulators=[len(a.acc_ops) for a in agg.aggs],
+        build_s=ex.build_seconds, upload_s=upload_s, kind=ex.kind,
         pool_reserved_bytes=ex.pool.reserved,
     )
+    agg = ex.agg_exec
+    if agg is not None:
+        rep.update(
+            mode=agg.mode, num_groups=agg.num_groups, piece_path=ex.use_piece,
+            presorted=bool(getattr(agg.grouping, "presorted", False)),
+            keys=[k.name for k in agg.key_infos],
+            accumulators=[len(a.acc_ops) for a in agg.aggs],
+        )
+    return ex, tiles, plan, rep
 
 
-def prepare_query(num: int, sf: float, tile_rows: int):
-    """Generate the tables, plan the query and upload its tiles; returns
-    (executor, tiles, tables, report dict)."""
-    tables, gen = generate_tables(num, sf)
-    ex, tiles, _, rep = plan_query(num, tables, tile_rows)
-    return ex, tiles, tables, dict(generate_s=gen, **rep)
+def prepare_query(num: int, sf: float, tile_rows: int, tables=None):
+    """Generate the tables (or take them from a ``TpchTables``), plan the
+    query and upload its tiles; returns (executor, tiles, tables, report)."""
+    cache = tables if tables is not None else TpchTables(sf)
+    before = dict(cache.generate_s)
+    query_tables = cache.for_query(num)
+    gen = {k: v for k, v in cache.generate_s.items() if k not in before}
+    ex, tiles, _, rep = plan_query(num, query_tables, tile_rows)
+    return ex, tiles, query_tables, dict(generate_s=gen, **rep)
 
 
 def check_result(num: int, ex, tiles, tables, want=None):
-    """One run held against the numpy oracle: integers, dates and strings
-    exactly, DOUBLE to rtol 1e-9.  Returns (result Table, engine frame,
-    oracle frame)."""
+    """One run held against the numpy oracle (``check_frame``); returns
+    (result Table, engine frame, oracle frame)."""
+    result = ex.run(prefetched_tiles=tiles)
+    got, want = check_frame(num, result, tables, want)
+    return result, got, want
+
+
+def check_frame(num: int, result, tables, want=None, sql=False):
+    """A result Table held against the numpy oracle (or ``want``): integers,
+    dates and strings exactly, DOUBLE to rtol 1e-9.  A SQL text's result is
+    held in the oracle's column order (its names are the spec's).  Returns
+    (engine frame, oracle frame)."""
     import pandas as pd
 
     from velox_tpu_torch.connectors.tpch.plans import ENGINE_OUTPUT_ORDER, oracle_result
 
-    result = ex.run(prefetched_tiles=tiles)
     got = result.to_pandas().reset_index(drop=True)
-    if num in ENGINE_OUTPUT_ORDER:
-        got = got[ENGINE_OUTPUT_ORDER[num]]
     if want is None:
         want = oracle_result(num, tables).reset_index(drop=True)
+    if sql:
+        assert set(got.columns) >= set(want.columns), (list(got.columns), list(want.columns))
+        got = got[list(want.columns)]
+    elif num in ENGINE_OUTPUT_ORDER:
+        got = got[ENGINE_OUTPUT_ORDER[num]]
     pd.testing.assert_frame_equal(got, want, check_dtype=False, rtol=1e-9)
-    return result, got, want
+    return got, want
 
 
 def join_steps(ex):
@@ -526,6 +595,14 @@ def time_primitives(runs: int, n: int = 1 << 24):
     operand = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen, device=DEVICE)
     perm = torch.sort(keys, stable=True).indices
     word = 8 * n
+    # "the value at the last flagged row" as the join probes and the run
+    # structure ask it: 1 row in 8 flagged, non-decreasing values
+    from velox_tpu_torch.ops.segmented import last_flagged
+
+    flags = torch.randint(0, 8, (n,), generator=gen, device=DEVICE) == 0
+    iota = torch.arange(n, dtype=torch.int64, device=DEVICE)
+    marked = torch.where(flags, iota, torch.full_like(iota, -1))
+    assert torch.equal(last_flagged(flags, iota, -1), torch.cummax(marked, 0).values)
     cases = {
         # keys in, keys and int64 positions out
         "sort_stable_int64": (lambda: torch.sort(keys, stable=True), 3 * word),
@@ -533,6 +610,11 @@ def time_primitives(runs: int, n: int = 1 << 24):
         "index_select_int64": (lambda: operand.index_select(0, perm), 3 * word),
         "cumsum_int64": (lambda: torch.cumsum(operand, 0), 2 * word),
         "cummax_int64": (lambda: torch.cummax(operand, 0), 3 * word),
+        # the same function both ways: the running maximum of the flagged
+        # values (values + indices out) and the engine's helper (flags and
+        # values in, values out)
+        "last_flagged_by_cummax": (lambda: torch.cummax(marked, 0), 3 * word),
+        "last_flagged_int64": (lambda: last_flagged(flags, iota, -1), 2 * word + n),
     }
     out = {"rows": n}
     for name, (fn, moved) in cases.items():
@@ -561,6 +643,89 @@ def time_query(ex, tiles, runs: int):
         host_share=None if busy is None else max(0.0, 1.0 - busy / engine_ms),
         top_kernels=top,
     )
+
+
+def expansion_report(ex):
+    """The expansion joins of a query's first run (the build sides' and
+    barriers' ones, run while the executor was constructed, then the last
+    pipeline's): how many tiles were expanded, the largest output bucket, the
+    rows they held, and how many expansions had each bucket."""
+    done = ex.build_expansions + ex.expansions
+    buckets = {}
+    for b, _ in done:
+        buckets[str(b)] = buckets.get(str(b), 0) + 1
+    return dict(
+        expansions=len(done), max_bucket=max((b for b, _ in done), default=0),
+        expanded_rows=sum(r for _, r in done), buckets=buckets,
+    )
+
+
+def run_tpch(num: int, tables, tile_rows: int, runs: int, want=None, sql=False):
+    """One query (its hand-built plan, or its SQL text when ``sql``) from host
+    tables as a caller of ``run_plan`` / ``run_sql`` waits for it: executor
+    construction (every build side and barrier pipeline, the uploads) and the
+    run, ending in the result fetch.  The first run is held against the
+    oracle (or ``want``); ``query_ms`` is the median of it and ``WHOLE_RUNS``
+    - 1 more, and one more run under ``torch.profiler`` gives the device
+    time (a first run longer than ``LONG_QUERY_S`` is the only one).  A
+    plan's line also has ``engine_ms``: its last pipeline over
+    device-resident tiles, median of ``runs``, as the Q1 / Q3 lines time it.
+    Returns (the line's fields, the oracle frame)."""
+    import torch
+
+    from velox_tpu_torch.connectors.tpch.queries import SQL
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.ops.group_piece import grouped_piece_sums
+    from velox_tpu_torch.sql import plan_sql
+
+    k2_before = grouped_piece_sums.launches
+    plan = None
+    t0 = time.perf_counter()
+    if sql:
+        plan = plan_sql(SQL[num], tables)
+    plan_sql_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex, tiles, plan, rep = plan_query(num, tables, tile_rows, plan=plan)
+    result = ex.run(prefetched_tiles=tiles)
+    # the first whole run: construction, upload and run (not the planning)
+    walls = [(time.perf_counter() - t0 - rep["plan_s"]) * 1e3]
+    rep["plan_s"] += plan_sql_s
+    t0 = time.perf_counter()
+    got, want = check_frame(num, result, tables, want=want, sql=sql)
+    oracle_s = time.perf_counter() - t0
+    first = dict(
+        device_peak_bytes_first_run=torch.cuda.max_memory_allocated(), **expansion_report(ex),
+        carry_groups=ex.carry_groups, carry_overflowed=ex.carry_overflowed,
+        groups_out=ex.groups_out, pool_peak_bytes=ex.pool.peak,
+    )
+    fields = dict(num=num, **rep, **first, oracle_s=oracle_s, result_rows=int(len(got)),
+                  correct=True)
+    if not sql:
+        timing = time_query(ex, tiles, runs)
+        timing["top_kernels"] = timing["top_kernels"][:4]
+        fields.update(timing)
+    del ex, tiles, result
+    torch.cuda.empty_cache()
+
+    def once():
+        LocalExecutor(plan, tile_rows=tile_rows, device=DEVICE).run()
+
+    busy, top = None, []
+    if walls[0] < LONG_QUERY_S * 1e3:
+        for _ in range(WHOLE_RUNS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            once()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        busy, top = device_busy_ms(once, top=4)
+    query_ms = statistics.median(walls)
+    fields.update(
+        query_ms=query_ms, query_runs_ms=walls, query_device_busy_ms=busy,
+        query_host_share=None if busy is None else max(0.0, 1.0 - busy / query_ms),
+        query_top_kernels=top, k2_launches=grouped_piece_sums.launches - k2_before,
+    )
+    return fields, want
 
 
 def main() -> int:
@@ -605,8 +770,9 @@ def main() -> int:
     bw = measured_bandwidth(args.runs)
     say("bandwidth", measured_bytes_per_s=bw, published_bytes_per_s=PEAK_BYTES_PER_S)
 
-    ex6, tiles6, tables6, rep6 = prepare_query(6, args.sf, args.tile_rows)
-    ex1, tiles1, tables1, rep1 = prepare_query(1, args.sf, args.tile_rows)
+    cache = TpchTables(args.sf)
+    ex6, tiles6, tables6, rep6 = prepare_query(6, args.sf, args.tile_rows, cache)
+    ex1, tiles1, tables1, rep1 = prepare_query(1, args.sf, args.tile_rows, cache)
     assert rep1["piece_path"] is True and rep6["piece_path"] is False, (rep1, rep6)
 
     records = check_kernels(ex1, tiles1[0], tiles6[0], args.runs)
@@ -620,8 +786,9 @@ def main() -> int:
     # ---- the main path, with the counts set to 0 just before it
     for w in wrappers.values():
         w.launches = 0
-    result6, got6, _ = check_result(6, ex6, tiles6, tables6)
-    result1, got1, _ = check_result(1, ex1, tiles1, tables1)
+    result6, got6, want6 = check_result(6, ex6, tiles6, tables6)
+    result1, got1, want1 = check_result(1, ex1, tiles1, tables1)
+    oracles = {6: want6, 1: want1}  # the SQL texts are held against these too
     q6_exact = int(result6.columns["revenue"][0])  # unscaled DECIMAL(18,4)
     passing = drive_ops(tiles6, ex1, tiles1, result1, q6_exact)
     launches = {name: w.launches for name, w in wrappers.items()}
@@ -634,6 +801,7 @@ def main() -> int:
         q1_count_order=[int(x) for x in got1["count_order"]])
 
     # ---- timings
+    summary = {}
     for num, ex, tiles, rep in ((6, ex6, tiles6, rep6), (1, ex1, tiles1, rep1)):
         before = grouped_piece_sums.launches
         timing = time_query(ex, tiles, args.runs)
@@ -646,6 +814,8 @@ def main() -> int:
         rows_per_s = rep["rows"] / (timing["engine_ms"] * 1e-3)
         say(f"q{num}", sf=args.sf, **rep, **timing, rows_per_s=rows_per_s,
             k2_launches_while_timing=k2, correct=True)
+        summary[f"plan q{num}"] = [timing["engine_ms"], timing["device_busy_ms"], rep["build_s"],
+                                   None, None]
 
     del ex6, tiles6, tables6, ex1, tiles1, tables1, result6, result1
     torch.cuda.empty_cache()
@@ -657,12 +827,14 @@ def main() -> int:
     # launch none of the hand-written kernels, and must not.
     before = dict((name, w.launches) for name, w in wrappers.items())
     for num in (3, 13):
-        tables, gen = generate_tables(num, args.sf)
+        before_gen = dict(cache.generate_s)
+        tables = cache.for_query(num)
+        gen = {k: v for k, v in cache.generate_s.items() if k not in before_gen}
         ex, tiles, plan, rep = plan_query(num, tables, args.tile_rows)
         assert ex.kind == "sort_agg_device", ex.kind
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        _, got, want = check_result(num, ex, tiles, tables)
+        _, got, oracles[num] = check_result(num, ex, tiles, tables)
         check_s = time.perf_counter() - t0
         first = sort_mode_report(ex)
         first["device_peak_bytes_first_run"] = torch.cuda.max_memory_allocated()
@@ -677,7 +849,8 @@ def main() -> int:
             # plan alone too (one executor, the tile kept on the device)
             from velox_tpu_torch.exec.runner import LocalExecutor
 
-            build_ex = LocalExecutor(join_steps(ex)[0].node.right, tile_rows=args.tile_rows)
+            build_ex = LocalExecutor(join_steps(ex)[0].node.right, tile_rows=args.tile_rows,
+                                     device=DEVICE)
             build_tiles = build_ex.device_tiles()
             extra["build_side"] = dict(
                 kind=build_ex.kind, rows=build_ex.source_table.num_rows,
@@ -690,7 +863,7 @@ def main() -> int:
             # 2^22-row tiles go through the carry merge
             small = 1 << 22
             ex4, tiles4, _, rep4 = plan_query(num, tables, small, plan=plan)
-            check_result(num, ex4, tiles4, tables, want=want)
+            check_result(num, ex4, tiles4, tables, want=oracles[num])
             extra["again_at_tile_rows"] = dict(
                 tile_rows=small, correct=True, build_s=rep4["build_s"],
                 orders_tiles=-(-tables["orders"].num_rows // small),
@@ -703,14 +876,40 @@ def main() -> int:
             "oracle_and_first_run_s": check_s, "result_rows": int(len(got)),
             "correct": True, **first, **sort_mode_report(ex), **extra,
         })
+        summary[f"plan q{num}"] = [timing["engine_ms"], timing["device_busy_ms"], rep["build_s"],
+                                   None, None]
         del ex, tiles, tables, plan
         torch.cuda.empty_cache()
     assert before == dict((name, w.launches) for name, w in wrappers.items())
+
+    # ---- the other eighteen plans, then the 22 texts through the SQL front
+    # end; a text is held against the oracle of its query's plan
+    for num in range(1, 23):
+        if num in (1, 3, 6, 13):
+            continue
+        fields, oracles[num] = run_tpch(num, cache.for_query(num), args.tile_rows, args.runs)
+        say("tpch_plans", sf=args.sf, **fields)
+        summary[f"plan q{num}"] = [fields["engine_ms"], fields["device_busy_ms"], fields["build_s"],
+                                   fields["query_ms"], fields["query_device_busy_ms"]]
+    small = TpchTables(min(args.sf, 1.0))
+    for num in range(1, 23):
+        if num in SQL_AT_SF1 and args.sf > 1:
+            fields, _ = run_tpch(num, small.for_query(num), args.tile_rows, args.runs, sql=True)
+            say("tpch_sql", sf=small.sf, **fields)
+        else:
+            fields, _ = run_tpch(num, cache.for_query(num), args.tile_rows, args.runs,
+                                 want=oracles[num], sql=True)
+            say("tpch_sql", sf=args.sf, **fields)
+        summary[f"sql q{num}"] = [None, None, fields["build_s"],
+                                  fields["query_ms"], fields["query_device_busy_ms"]]
+    say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound", "geometry")
     for r in records:
         r["launches"] = launches[r["name"]]
+    say("summary", card=smi,
+        columns="[engine_ms, device_busy_ms, build_s, query_ms, query_device_busy_ms]", **summary)
     say("total", seconds=time.perf_counter() - t_begin)
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

@@ -21,11 +21,12 @@ prints, one JSON line each:
               work taken away (all rows dead, count specs only, one spec with
               every factor), which shows what staging, table adds and products
               each cost;
-``last_flagged_row``  what every ``cummax`` / ``cummin`` of the sort-mode paths
-              computes ("the last flagged row at or before this one"), timed
-              as the engine does it and as a prefix count of the flags, a
-              scatter by that count and a gather back; equal results asserted.
-              The engine does not contain the second form.
+``last_flagged_row``  what the sort-mode paths compute where the JAX
+              package runs ``cummax`` / ``cummin`` ("the last flagged row at
+              or before this one"), timed as ``torch.cummax`` and as the
+              engine's ``ops/segmented.py last_flagged`` (a prefix count of
+              the flags, a scatter by that count and a gather back); equal
+              results asserted.
 
 The wrappers take no tuning argument: a variant is run by planning every
 launch inside ``planned_with(...)`` with that override of
@@ -161,8 +162,10 @@ def piece_cost_split(cols, gid_live, plans, groups, runs: int):
 def last_flagged_row(runs: int, n: int = 1 << 24):
     """ms of "the last flagged row at or before each row" over ``n`` rows, 1
     in 8 flagged, two ways on one input: the running maximum of the flagged
-    positions, and prefix count + scatter + gather."""
+    positions, and prefix count + scatter + gather (the engine's helper)."""
     import torch
+
+    from velox_tpu_torch.ops.segmented import last_flagged
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(24)
@@ -174,10 +177,7 @@ def last_flagged_row(runs: int, n: int = 1 << 24):
         return torch.cummax(marked, 0).values
 
     def by_count_scatter_gather():
-        count = torch.cumsum(flag, 0)  # flags at or before the row
-        table = torch.full((n + 2,), -1, dtype=torch.int64, device=DEVICE)
-        table.scatter_(0, torch.where(flag, count, torch.full_like(count, n + 1)), iota)
-        return table.index_select(0, count)
+        return last_flagged(flag, iota, -1)
 
     assert torch.equal(by_cummax(), by_count_scatter_gather())
     return dict(

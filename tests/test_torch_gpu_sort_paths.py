@@ -5,7 +5,8 @@ and the device OrderBy / TopN are plain torch calls, so the CPU tests hold
 their logic against the JAX package; what only a CUDA device can show is that
 every one of those calls exists there for the dtypes used (stable sorts of
 int64 and uint8, ``scatter_reduce_`` with ``amin`` / ``amax`` on int64 and
-float64, ``cummax`` / ``cummin``) and gives the same rows.  ``chip_smoke.py``
+float64, the last-flagged-row helper's scatter and gather) and gives the same
+rows.  ``chip_smoke.py``
 runs TPC-H Q3 and Q13 at full size; these cases reach the branches those two
 queries do not (two-limb keys, the classification probe, an empty build side,
 the host merge, NULL keys, min / max, DOUBLE sums).  Skipped where there is no

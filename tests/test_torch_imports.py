@@ -23,6 +23,7 @@ import velox_tpu_torch.ops.segmented, velox_tpu_torch.ops.sortkey
 import velox_tpu_torch.ops.compact, velox_tpu_torch.exec.joins
 import velox_tpu_torch.exec.sort, velox_tpu_torch.exec.grouping
 import velox_tpu_torch.utils.transfer
+import velox_tpu_torch.ops.segpool, velox_tpu_torch.sql.planner
 import velox_tpu_torch.testing
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -116,6 +117,25 @@ def test_join_and_collect_entry_points_raise_without_cuda():
     assert ex.run().num_rows == 8
     [step] = [s for s in ex.lin.steps if s[0] == "join"]
     assert step[1].device.type == "cpu"
+
+
+def test_sql_and_plan_time_fragments_raise_without_cuda():
+    """``run_sql`` and the scalar-subquery fragments that Q11 / Q15 / Q22 run
+    while their plans are built take ``device=None`` as CUDA too."""
+    from velox_tpu_torch.connectors.tpch import plans
+    from velox_tpu_torch.sql import run_sql
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default device exists")
+    table, _ = _tiny_plan()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_sql("select k, sum(v) as s from t group by k", {"t": table})
+    got = run_sql("select k, sum(v) as s from t group by k order by k", {"t": table}, device="cpu")
+    assert list(got.columns["s"]) == [12, 16]
+    tables = plans.load_query_tables(22, 0.001)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plans.build_query(22, tables)
+    assert plans.build_query(22, tables, device="cpu") is not None
 
 
 def test_explicit_cpu_runs():

@@ -258,38 +258,51 @@ def test_right_join_flips_and_inner_filter_lowers():
 
 
 def test_what_is_not_ported_raises_by_name():
-    (_, port_p), (_, port_b) = _data()
+    """What the unique-build slice refused now runs (a duplicate-key build on
+    either build path, a LEFT join's filter) and gives the JAX package's
+    rows; FULL joins and the lowerings that need UNION ALL still raise by
+    name."""
+    (ref_p, port_p), (ref_b, port_b) = _data()
+
+    def plans(builder, p, b):
+        scan_p = lambda: builder().table_scan(p)  # noqa: E731
+        scan_b = lambda: builder().table_scan(b)  # noqa: E731
+        agg_b = scan_b().aggregation(["b1"], ["min(b2) as b2"])
+        return {
+            # b2 alone repeats: the build side needs the expansion join
+            "dup": scan_p().hash_join(scan_b(), ["p2"], ["b2"], output=["p1", "bval"]),
+            # ... on the host build path too
+            "dup_host": scan_p().hash_join(agg_b, ["p2"], ["b2"], output=["p1"]),
+            "left_filter": scan_p().hash_join(
+                scan_b(), ["p1"], ["b1"], output=["p1", "pv", "bval"], join_type="left",
+                filter="pv > bval",
+            ),
+        }
+
+    ref_plans, port_plans = plans(RefBuilder, ref_p, ref_b), plans(PortBuilder, port_p, port_b)
+    for name in ref_plans:
+        keys = list(ref_plans[name].schema.names)
+        ref = RefExecutor(ref_plans[name].orderby(keys).build(), tile_rows=1 << 11)
+        port = PortExecutor(port_plans[name].orderby(keys).build(), tile_rows=1 << 11, device="cpu")
+        assert [s[0] for s in port._all_steps] == [s[0] for s in ref._all_steps], name
+        _same_table(port.run(), ref.run())
+    # the device-resident build signals the duplicates; the executor then
+    # builds the per-key runs on the host
+    dup = plans(PortBuilder, port_p, port_b)["dup"].build()
+    built = PortExecutor(dup.right, device="cpu").run_device()
+    with pytest.raises(port_joins.DuplicateBuildKeys, match="host path"):
+        port_joins.HashJoinExec.build_from_device(dup, *built)
     scan_p = lambda: PortBuilder().table_scan(port_p)  # noqa: E731
     scan_b = lambda: PortBuilder().table_scan(port_b)  # noqa: E731
-    # b2 alone repeats: a duplicate-key build side needs the expansion join
-    dup = scan_p().hash_join(scan_b(), ["p2"], ["b2"], output=["p1", "bval"]).build()
-    with pytest.raises(NotImplementedError, match="DuplicateBuildKeys"):
-        PortExecutor(dup, device="cpu")
-    with pytest.raises(port_joins.DuplicateBuildKeys, match="expansion join"):
-        PortExecutor(dup, device="cpu")
-    # ... on the host build path too
-    agg_b = scan_b().aggregation(["b1"], ["min(b2) as b2"])
-    dup_host = scan_p().hash_join(agg_b, ["p2"], ["b2"], output=["p1"]).build()
-    with pytest.raises(NotImplementedError, match="DuplicateBuildKeys"):
-        PortExecutor(dup_host, device="cpu")
-    # semi / anti deduplicate: the same build side works there
-    semi = scan_p().hash_join(scan_b(), ["p2"], ["b2"], output=["p1"], join_type="left_semi").build()
-    assert PortExecutor(semi, device="cpu").run().num_rows > 0
     full = scan_p().hash_join(scan_b(), ["p1"], ["b1"], output=["p1"], join_type="full").build()
     with pytest.raises(NotImplementedError, match="FULL"):
         PortExecutor(full, device="cpu")
-    left_f = scan_p().hash_join(
-        scan_b(), ["p1"], ["b1"], output=["p1", "bval"], join_type="left", filter="pv > bval"
-    ).build()
-    with pytest.raises(NotImplementedError, match="left_join_filter"):
-        PortExecutor(left_f, device="cpu")
-    for name in ("rewrite_filtered_existence_joins", "rewrite_left_filter_nm", "rewrite_full_filter",
-                 "rewrite_null_aware_anti_filter"):
+    for name in ("rewrite_full_filter", "rewrite_null_aware_anti_filter"):
         with pytest.raises(NotImplementedError, match=name):
             getattr(port_joins, name)(None)
     ok = scan_p().hash_join(scan_b(), ["p1"], ["b1"], output=["p1"]).build()
     ex = [s[1] for s in PortExecutor(ok, device="cpu").lin.steps if s[0] == "join"][0]
-    for name in ("probe_spans", "expand", "full_tail", "probe_split_host"):
+    for name in ("full_tail", "probe_split_host"):
         with pytest.raises(NotImplementedError, match=name):
             getattr(ex, name)(None)
 

@@ -194,6 +194,6 @@ def test_expressions_the_two_queries_bind():
 
 
 def test_unported_queries_raise_by_name():
-    with pytest.raises(NotImplementedError, match="Q5"):
-        port_plans.build_query(5, {})
-    assert port_plans.implemented_queries() == [1, 3, 6, 13]
+    assert port_plans.implemented_queries() == list(range(1, 23))
+    with pytest.raises(KeyError):
+        port_plans.build_query(23, {})

@@ -174,18 +174,25 @@ def test_prefetched_tiles_and_stats():
 
 def test_unported_plans_raise_by_name():
     tables = _tables(1)[1]
-    with pytest.raises(NotImplementedError, match="Q5"):
-        port_plans.build_query(5, tables)
+    assert port_plans.implemented_queries() == list(range(1, 23))
     from velox_tpu_torch.plan import PlanBuilder
 
     scan = lambda: PlanBuilder().table_scan(tables["lineitem"])  # noqa: E731
-    for method in ("cross_join", "union_all", "window", "unnest", "table_write"):
+    for method in ("nested_loop_join", "union_all", "window", "unnest", "table_write"):
         with pytest.raises(NotImplementedError, match=method):
             getattr(scan(), method)(None)
-    # a join whose build side repeats its key needs the expansion join
-    dup = scan().hash_join(scan(), ["l_tax"], ["l_tax"], output=["l_tax"]).build()
-    with pytest.raises(NotImplementedError, match="DuplicateBuildKeys"):
-        PortExecutor(dup, device="cpu")
+    # a join whose build side repeats its key runs as an expansion join:
+    # one output row per pair of rows with equal keys
+    cols = {n: np.asarray(tables["lineitem"].columns[n]) for n in ("l_tax", "l_quantity", "l_discount")}
+    probe = PlanBuilder().table_scan(tables["lineitem"], filter="l_quantity = 1 and l_discount = 0")
+    build = PlanBuilder().table_scan(tables["lineitem"], filter="l_quantity = 2")
+    dup = probe.hash_join(build, ["l_tax"], ["l_tax"], output=["l_tax"]).build()
+    ex = PortExecutor(dup, tile_rows=1 << 14, device="cpu")
+    assert [s[0] for s in ex._all_steps] == ["filter", "xjoin"]
+    probe_tax = cols["l_tax"][(cols["l_quantity"] == 100) & (cols["l_discount"] == 0)]
+    build_tax = cols["l_tax"][cols["l_quantity"] == 200]
+    counts = np.bincount(build_tax, minlength=16)
+    assert ex.run().num_rows == int(counts[probe_tax].sum()) > 0
     full = scan().hash_join(
         scan(), ["l_tax"], ["l_tax"], output=["l_tax"], join_type="full"
     ).build()

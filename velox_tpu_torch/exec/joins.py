@@ -12,8 +12,9 @@ is a later change, measured against this one):
   1. build side: key-sorted tensors, device-resident (the JoinBridge analog);
   2. per probe tile: sort the concatenation [build keys ++ probe keys] with a
      tie-break flag so each build row precedes equal probe keys;
-  3. a running maximum (cummax) of "last build row seen" gives every probe row
-     its candidate match in one scan;
+  3. "the last build row at or before this one" (the reference's running
+     maximum, ``ops/segmented.py last_flagged`` here) gives every probe row
+     its candidate match;
   4. the output is emitted in merged key order (fused probe) or compacted by a
      second sort (classification path).
 
@@ -26,13 +27,23 @@ values outside any range cannot match and map to a negative sentinel.
 Every sort here is stable (``torch.sort(stable=True)``): build rows must
 precede equal probe keys, and ties keep their input order.
 
-Scope: equi-joins with a UNIQUE build side (primary-key joins), types INNER,
-LEFT, LEFT_SEMI and ANTI (semi / anti deduplicate the build keys, so any build
-side works there).  Not ported yet, each raising ``NotImplementedError`` by
-name: a build side with duplicate keys (``DuplicateBuildKeys``: the expansion
-join with ``probe_spans`` / ``expand`` and ops/segpool), FULL joins and
-``full_tail``, ``left_join_filter``, the ``rewrite_*`` plan lowerings for
-filtered semi / anti / full joins, and ``probe_split_host`` (a split dispatch
+Scope: equi-joins, types INNER, LEFT, LEFT_SEMI and ANTI.  A UNIQUE build
+side (primary-key joins) probes in one fused pass.  A build side with
+DUPLICATE keys becomes an **expansion join**: the build keeps per-key runs
+(start, count) in sorted order, each probe row resolves to a span over the
+build array (``probe_spans``), and ``expand`` writes one output row per
+(probe row, matching build row) pair into a power-of-two output bucket that
+the executor sizes by one scalar read a tile (ops/segpool.py).  LEFT_SEMI and
+ANTI deduplicate the build keys, so any build side works there.  Non-equi
+filters: on INNER they become a filter above the join, on LEFT they null the
+build side of failing matches (the executor's ``left_join_filter`` step; on
+an N:M LEFT join through ``rewrite_left_filter_nm``), on LEFT_SEMI / ANTI
+they lower through ``rewrite_filtered_existence_joins``.
+
+Not ported yet, each raising ``NotImplementedError`` by name: FULL joins and
+``full_tail``, filtered null-aware anti joins
+(``rewrite_null_aware_anti_filter``, which needs UNION ALL), filtered FULL
+joins (``rewrite_full_filter``), and ``probe_split_host`` (a split dispatch
 that exists for the JAX package's compiler).
 """
 
@@ -45,6 +56,7 @@ import numpy as np
 import torch
 
 from ..io.table import Table
+from ..ops.segmented import last_flagged
 from ..ops.sortkey import sort_operands
 from ..plan.nodes import HashJoinNode, JoinType
 from ..vector.column import Batch, Column, _take_clamped as _take
@@ -54,9 +66,9 @@ class JoinBuildError(RuntimeError):
     pass
 
 
-class DuplicateBuildKeys(JoinBuildError, NotImplementedError):
-    """The build side holds duplicate keys: it needs the expansion join
-    (per-key runs, probe_spans / expand), which is not ported yet."""
+class DuplicateBuildKeys(JoinBuildError):
+    """Signals the device-resident build path that the build side needs
+    expansion-join state; the caller falls back to the host build."""
 
 
 def _not_ported(name: str, what: str):
@@ -67,14 +79,8 @@ def _not_ported(name: str, what: str):
     return raiser
 
 
-rewrite_filtered_existence_joins = _not_ported(
-    "rewrite_filtered_existence_joins", "non-equi filters on semi / anti joins"
-)
 rewrite_null_aware_anti_filter = _not_ported(
     "rewrite_null_aware_anti_filter", "filtered null-aware anti joins"
-)
-rewrite_left_filter_nm = _not_ported(
-    "rewrite_left_filter_nm", "non-equi filters on N:M LEFT joins"
 )
 rewrite_full_filter = _not_ported("rewrite_full_filter", "filtered FULL joins")
 
@@ -217,6 +223,14 @@ def _key_codes(keys: torch.Tensor, lo: int, span: int) -> torch.Tensor:
     return keys.clamp(lo1, lo1 + span) - lo1
 
 
+def _last_build_row(p_s: torch.Tensor, o_s: torch.Tensor) -> torch.Tensor:
+    """Per row of a merge sort of [build keys ++ probe keys], the index of the
+    last build row at or before it (-1: none).  The build keys are sorted and
+    the merge sort is stable, so build rows arrive in increasing index order:
+    the last one is the running maximum of their indices."""
+    return last_flagged(p_s == 0, o_s, -1)
+
+
 def _iota(n: int, device, dtype=torch.int64) -> torch.Tensor:
     return torch.arange(n, dtype=dtype, device=device)
 
@@ -267,6 +281,10 @@ class HashJoinExec:
     build_tables: Dict[str, object]
     normalizer: Optional[_NormalizedKey]  # None for single raw int64 key
     build_valid: Optional[torch.Tensor] = None  # [B] live-slot mask (device builds)
+    # expansion (N:M) join state: per sorted-build-slot run info
+    expansion: bool = False
+    run_start: Optional[torch.Tensor] = None  # [B] first slot of this key's run
+    run_count: Optional[torch.Tensor] = None  # [B] length of this key's run
     # host-known (min, max) of the VALID build keys: enables the packed
     # single-word probe sorts; None = unknown
     key_range: Optional[Tuple[int, int]] = None
@@ -280,14 +298,12 @@ class HashJoinExec:
     build_has_null_key: bool = False
     n_valid_build_keys: int = 0
     # Fused-probe build payload (see _probe_fused): every build output column
-    # bit-packed into ONE int64 per build row, so the merge sort's cummax
-    # propagates the whole payload to matching probe rows with no gather.
+    # bit-packed into ONE int64 per build row, so propagating the last build
+    # word carries the whole payload to matching probe rows with no gather.
     bp_plan: Optional[object] = None
     bp_packed: Optional[torch.Tensor] = None
     bp_fields: Optional[Tuple] = None
 
-    probe_spans = _not_ported("HashJoinExec.probe_spans", "expansion join")
-    expand = _not_ported("HashJoinExec.expand", "expansion join")
     init_matched = _not_ported("HashJoinExec.init_matched", "FULL join")
     full_tail = _not_ported("HashJoinExec.full_tail", "FULL join")
     probe_split_host = _not_ported("HashJoinExec.probe_split_host", "split dispatch")
@@ -298,7 +314,10 @@ class HashJoinExec:
 
     def state_bytes(self) -> int:
         """Bytes of the device-resident build state (pool accounting)."""
-        tensors = [self.build_keys, self.build_keys_hi, self.build_valid, self.bp_packed]
+        tensors = [
+            self.build_keys, self.build_keys_hi, self.build_valid, self.bp_packed,
+            self.run_start, self.run_count,
+        ]
         for values, validity in self.build_cols.values():
             tensors += [values, validity]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
@@ -306,7 +325,7 @@ class HashJoinExec:
     def _prepare_build_payload(self, bounds_map) -> None:
         """Pack the build's non-key output columns (+ validity bits) into one
         int64 word per row when their combined bit-width allows — the fused
-        probe then carries the payload through its cummax scan instead of
+        probe then carries the payload through its last-build propagation instead of
         gathering per column.
 
         ``bounds_map``: per-column inclusive (lo, hi) integer bounds.  Any
@@ -342,10 +361,13 @@ class HashJoinExec:
         ):
             raise NotImplementedError(f"join type {node.join_type} is not ported yet")
         if node.filter is not None:
-            # INNER filters are lowered by _linearize before any build
+            # INNER / LEFT filters are stripped by _linearize; semi / anti
+            # filters lower through rewrite_filtered_existence_joins —
+            # reaching here means a lowering was skipped, and dropping the
+            # filter would return wrong rows
             raise NotImplementedError(
-                f"a join filter on {node.join_type.value} joins (left_join_filter "
-                "and the rewrite_* lowerings) is not ported yet"
+                f"join filter on {node.join_type.value} must be lowered before "
+                "execution (rewrite_filtered_existence_joins)"
             )
 
     @staticmethod
@@ -393,6 +415,8 @@ class HashJoinExec:
             eq = np.zeros(0, dtype=bool)
 
         jt = node.join_type
+        expansion = False
+        run_start = run_count = None
         if jt in (JoinType.LEFT_SEMI, JoinType.ANTI):
             # Only existence matters; deduplicate so any build side works.
             first = (
@@ -403,11 +427,19 @@ class HashJoinExec:
                 keys_hi_sorted = keys_hi_sorted[first]
             row_order = row_order[first]
         elif eq.any():
-            raise DuplicateBuildKeys(
-                f"the build side of {node.id} holds {int(eq.sum())} duplicate "
-                "key(s): the expansion join (DuplicateBuildKeys -> probe_spans / "
-                "expand) is not ported yet"
-            )
+            # duplicate keys: keep per-key runs (the expansion join)
+            if keys_hi_sorted is not None:
+                raise JoinBuildError(
+                    "N:M joins with composite keys wider than 62 bits are not "
+                    "supported; pre-aggregate the build side"
+                )
+            expansion = True
+            n = len(keys_sorted)
+            boundary = np.concatenate([[True], ~eq])
+            starts = np.flatnonzero(boundary)
+            lengths = np.diff(np.append(starts, n))
+            run_start = torch.as_tensor(np.repeat(starts, lengths).astype(np.int64), device=device)
+            run_count = torch.as_tensor(np.repeat(lengths, lengths).astype(np.int64), device=device)
 
         cols: Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
         bounds_map: Dict[str, Tuple[int, int]] = {}
@@ -449,8 +481,12 @@ class HashJoinExec:
             ),
             build_has_null_key=keep is not None,
             n_valid_build_keys=n_valid_keys,
+            expansion=expansion,
+            run_start=run_start,
+            run_count=run_count,
         )
-        exec_._prepare_build_payload(bounds_map)
+        if not expansion:
+            exec_._prepare_build_payload(bounds_map)
         return exec_
 
     @staticmethod
@@ -584,9 +620,8 @@ class HashJoinExec:
         _raise_on_errors(int(err))
         if int(dup):
             raise DuplicateBuildKeys(
-                f"the build side of {node.id} holds {int(dup)} duplicate key(s): "
-                "the expansion join (DuplicateBuildKeys -> probe_spans / expand) "
-                "is not ported yet"
+                f"the build side of {node.id} holds {int(dup)} duplicate key(s); "
+                "expansion state is built on the host path"
             )
         n = int(n_valid)
         bounds_map = {
@@ -684,8 +719,7 @@ class HashJoinExec:
             # sort by (key, is_probe): build rows precede equal probe keys
             k_s, p_s, o_s = sort_operands((all_keys, is_probe, orig), num_keys=2)
             h_s = None
-        bidx = torch.where(p_s == 0, o_s, torch.full_like(o_s, -1))
-        last_build = torch.cummax(bidx, 0).values
+        last_build = _last_build_row(p_s, o_s)
         cand = last_build.clamp(0, B - 1)
         hit = (p_s == 1) & (last_build >= 0) & (_take(self.build_keys, cand) == k_s)
         if h_s is not None:
@@ -733,9 +767,106 @@ class HashJoinExec:
         limbs, key_ok = self.normalizer.pack_device_limbs(probe_vals, not_null)
         return limbs, not_null, key_ok, probe_vals
 
+    # ---- expansion (N:M) probe: spans + expand ------------------------------
+    def probe_spans(self, batch: Batch):
+        """Phase 1 of an expansion join: per probe row (in the batch's order)
+        the matching build run.  Returns (sizes, starts, hit, total) with
+        ``total`` the 0-d count of output rows."""
+        assert self.expansion
+        cap = batch.capacity
+        B = self.build_size
+        dev = batch.device
+        (_, probe_keys), _, key_ok, _ = self._probe_keys(batch)
+        live = batch.active_mask()
+        all_keys = torch.cat([self.build_keys, probe_keys])
+        is_probe = torch.cat(
+            [torch.zeros((B,), dtype=torch.int64, device=dev),
+             torch.ones((cap,), dtype=torch.int64, device=dev)]
+        )
+        orig = torch.cat([_iota(B, dev), _iota(cap, dev)])
+        idxb = _index_bits(max(B, cap))
+        packed = False
+        if self.key_range is not None:
+            lo, hi = self.key_range
+            span = hi - lo + 2
+            packed = int(span).bit_length() + 1 + idxb <= 63
+        if packed:
+            # one packed word: (key code, is_probe, row index)
+            merged = (_key_codes(all_keys, lo, span) << (1 + idxb)) | (is_probe << idxb) | orig
+            s = torch.sort(merged, stable=True).values
+            o_s = s & ((1 << idxb) - 1)
+            p_s = (s >> idxb) & 1
+            k_s = _take(probe_keys, o_s)  # RAW keys: immune to code collisions
+        else:
+            k_s, p_s, o_s = sort_operands((all_keys, is_probe, orig), num_keys=2)
+        last_build = _last_build_row(p_s, o_s)
+        cand = last_build.clamp(0, B - 1)
+        hit_s = (p_s == 1) & (last_build >= 0) & (_take(self.build_keys, cand) == k_s)
+        # back to the batch's row order: probe rows hold distinct row ids, so
+        # a scatter places each one (build rows go to a spare slot); the JAX
+        # package sorts again by (is_build, row id) to the same effect
+        slot = torch.where(p_s == 1, o_s, torch.full_like(o_s, cap))
+        cand_p = torch.zeros((cap + 1,), dtype=torch.int64, device=dev).scatter_(0, slot, cand)[:cap]
+        hit_p = torch.zeros((cap + 1,), dtype=torch.bool, device=dev).scatter_(0, slot, hit_s)[:cap]
+        hit = hit_p & key_ok & live
+        starts = _take(self.run_start, cand_p)
+        counts = _take(self.run_count, cand_p)
+        if self.node.join_type == JoinType.LEFT:
+            sizes = torch.where(live, torch.where(hit, counts, torch.ones_like(counts)),
+                                torch.zeros_like(counts))
+        else:  # INNER
+            sizes = torch.where(hit, counts, torch.zeros_like(counts))
+        return sizes, starts, hit, sizes.sum()
+
+    def expand(self, batch: Batch, spans, out_cap: int) -> Batch:
+        """Phase 2: materialize the joined rows into an [out_cap] batch (one
+        row per probe row and matching build row; an unmatched LEFT row once,
+        with the build side NULL)."""
+        from ..ops.segpool import dense_starts, owner_rows
+
+        node = self.node
+        cap = batch.capacity
+        jt = node.join_type
+        sizes, run_starts, hit = spans[0], spans[1], spans[2]
+        out_starts = dense_starts(sizes)
+        total = out_starts[-1] + sizes[-1]
+        rowid = owner_rows(out_starts, out_cap)
+        pos = _iota(out_cap, batch.device)
+        offset = pos - _take(out_starts, rowid)
+        build_pos = (_take(run_starts, rowid) + offset).clamp(0, max(self.build_size - 1, 0))
+        row_hit = _take(hit, rowid)
+
+        left_schema = node.left.output_schema
+        right_key_to_left = dict(zip(node.right_keys, node.left_keys))
+        out_cols: List[Column] = []
+        for name, dtype in zip(node.output_schema.names, node.output_schema.types):
+            if name in left_schema:
+                out_cols.append(batch.column(name).flatten(cap).gather(rowid))
+            elif name in right_key_to_left:
+                src = batch.column(right_key_to_left[name])
+                values, _ = src.decode(cap)
+                gv = row_hit if jt == JoinType.LEFT else None
+                out_cols.append(
+                    Column.flat(_take(values, rowid).to(dtype.device_dtype), dtype, gv, src.strings)
+                )
+            else:
+                values, validity = self.build_cols[name]
+                g = _take(values, build_pos)
+                gv = None if validity is None else _take(validity, build_pos)
+                if jt == JoinType.LEFT:
+                    gv = row_hit if gv is None else (gv & row_hit)
+                out_cols.append(Column.flat(g, dtype, gv, self.build_tables.get(name)))
+        return Batch(
+            tuple(out_cols),
+            total.to(torch.int32),
+            None,
+            node.output_schema,
+            out_cap,
+        )
+
     # ---- fused probe ----------------------------------------------------
     def _probe_fused(self, batch: Batch) -> Optional[Batch]:
-        """ONE merge sort + one cummax scan.
+        """ONE merge sort + one last-build propagation.
 
           1. packs (key code | is_probe | live | key-valid | ok | low) into
              one int64 word per row — build rows put their ENTIRE bit-packed
@@ -743,7 +874,7 @@ class HashJoinExec:
           2. sorts ONCE; the probe's output columns follow through the sort's
              permutation (build slots hold the build key so downstream
              presorted grouping sees intact runs);
-          3. a cummax propagates the last build word to each probe row: the
+          3. one pass propagates the last build word to each probe row: the
              candidate's key code AND payload arrive in one scan — the
              reference's equivalent is its vectorized hash-table probe
              (velox/exec/HashTable.cpp:360);
@@ -767,7 +898,7 @@ class HashJoinExec:
         None = not eligible."""
         node = self.node
         B = self.build_size
-        if B == 0 or self.key_range is None:
+        if self.expansion or B == 0 or self.key_range is None:
             return None
         if self.build_keys_hi is not None:
             return None
@@ -881,8 +1012,8 @@ class HashJoinExec:
         return word, tuple(ops), (vbits,) if vbits is not None else (), meta
 
     def _fused_post(self, plan, s: torch.Tensor, payloads, meta, has_vbits: bool):
-        """Everything after the fused probe's sort: the cummax candidate
-        scan + output-column assembly in merged order."""
+        """Everything after the fused probe's sort: the candidate build word
+        per probe row + output-column assembly in merged order."""
         node = self.node
         jt = node.join_type
         cap, B, L = plan["cap"], plan["B"], plan["L"]
@@ -893,8 +1024,9 @@ class HashJoinExec:
 
         # ---- one scan: candidate build word per probe row
         is_probe = ((s >> (3 + L)) & 1).to(torch.bool)
-        bmark = torch.where(is_probe, torch.full_like(s, -1), s)
-        lastb = torch.cummax(bmark, 0).values
+        # ``s`` is sorted, so the last build word is the running maximum of
+        # the build words (build words are non-negative: -1 = none)
+        lastb = last_flagged(~is_probe, s, -1)
         own_code = s >> (4 + L)
         cand_code = lastb >> (4 + L)  # -1 rows: negative, never equal
         live_s = ((s >> (2 + L)) & 1).to(torch.bool)
@@ -955,6 +1087,7 @@ class HashJoinExec:
 
     # ---- probe ---------------------------------------------------------
     def probe(self, batch: Batch) -> Batch:
+        assert not self.expansion, "expansion joins go through probe_spans / expand"
         node = self.node
         cap = batch.capacity
         dev = batch.device
@@ -1022,3 +1155,140 @@ class HashJoinExec:
             node.output_schema,
             cap,
         )
+
+
+# ---------------------------------------------------------------------------
+# Non-equi filters on existence joins and N:M LEFT joins: plan rewrites
+
+
+def _filter_refs(e) -> set:
+    from ..expr.ir import FieldAccess
+
+    out = set()
+
+    def walk(x):
+        if isinstance(x, FieldAccess):
+            out.add(x.name)
+        for c in x.children:
+            walk(c)
+
+    walk(e)
+    return out
+
+
+def rewrite_filtered_existence_joins(node):
+    """Lower LEFT_SEMI / ANTI joins that carry a non-equi filter.
+
+    The reference evaluates the filter per candidate match inside HashProbe
+    (velox/exec/HashProbe.cpp filter evaluation); this engine's existence
+    joins deduplicate the build side and keep a single candidate per probe
+    row, so a filter needs ALL matches.  Rewrite (plan-level, before
+    linearization):
+
+        uid     = AssignUniqueId(probe)
+        matched = distinct uids of (uid INNER JOIN build ON keys, filter f)
+        result  = uid SEMI/ANTI JOIN matched ON uid
+
+    The probe subtree executes twice (once inside ``matched``); uids derive
+    from global row offsets, so both executions agree.  RIGHT_SEMI flips to
+    LEFT_SEMI first (the same lowering _linearize applies).  A filtered FULL
+    or null-aware ANTI join reaches ``rewrite_full_filter`` /
+    ``rewrite_null_aware_anti_filter``, which are not ported yet.
+    """
+    from ..plan.nodes import (
+        AggregationNode,
+        AggregationStep,
+        AssignUniqueIdNode,
+        PlanNode,
+    )
+
+    kids = {}
+    for attr in ("source", "left", "right"):
+        child = getattr(node, attr, None)
+        if isinstance(child, PlanNode):
+            kids[attr] = rewrite_filtered_existence_joins(child)
+    if kids:
+        node = dataclasses.replace(node, **kids)
+    if not isinstance(node, HashJoinNode) or node.filter is None:
+        return node
+    jt = node.join_type
+    if jt == JoinType.RIGHT_SEMI:
+        node = dataclasses.replace(
+            node,
+            left=node.right,
+            right=node.left,
+            left_keys=node.right_keys,
+            right_keys=node.left_keys,
+            join_type=JoinType.LEFT_SEMI,
+        )
+        jt = JoinType.LEFT_SEMI
+    if jt == JoinType.FULL:
+        return rewrite_full_filter(node)
+    if jt not in (JoinType.LEFT_SEMI, JoinType.ANTI):
+        return node
+    if node.null_aware:
+        return rewrite_null_aware_anti_filter(node)
+    uid_name = f"__ejf_{node.id}"
+    probe, build = node.left, node.right
+    uid = AssignUniqueIdNode(probe, uid_name)
+    # the INNER join's output must carry every column the filter reads
+    # (_linearize evaluates the filter above the join)
+    refs = _filter_refs(node.filter)
+    inner_out = [uid_name] + [
+        c
+        for c in refs
+        if c != uid_name and (c in probe.output_schema or c in build.output_schema)
+    ]
+    inner = HashJoinNode(
+        uid, build, JoinType.INNER, node.left_keys, node.right_keys,
+        tuple(inner_out), node.filter,
+    )
+    matched = AggregationNode(inner, AggregationStep.SINGLE, (uid_name,), (), ())
+    return HashJoinNode(
+        uid, matched, jt, (uid_name,), (uid_name,), tuple(node.output_columns),
+        id=node.id,
+    )
+
+
+def rewrite_left_filter_nm(node: HashJoinNode) -> HashJoinNode:
+    """LEFT join + non-equi filter over a duplicate-key (N:M) build.
+
+    The single-candidate null-out path (the executor's ``left_join_filter``
+    step) cannot see all matches, so lower to supported primitives (reference
+    behavior: HashProbe evaluates the filter per expanded match and emits the
+    probe row null-extended when every match fails):
+
+        uid     = AssignUniqueId(probe)
+        inner   = uid INNER JOIN build ON keys, filter f   (N:M, filtered)
+        result  = uid LEFT JOIN inner ON uid               (N:M, no filter)
+    """
+    from ..plan.nodes import AssignUniqueIdNode
+
+    if node.join_type == JoinType.RIGHT:
+        node = dataclasses.replace(
+            node,
+            left=node.right,
+            right=node.left,
+            left_keys=node.right_keys,
+            right_keys=node.left_keys,
+            join_type=JoinType.LEFT,
+        )
+    assert node.join_type == JoinType.LEFT and node.filter is not None
+    uid_name = f"__ljf_{node.id}"
+    uid = AssignUniqueIdNode(node.left, uid_name)
+    ls = node.left.output_schema
+    rs = node.right.output_schema
+    refs = _filter_refs(node.filter)
+    inner_out = [uid_name] + [
+        c
+        for c in dict.fromkeys(list(node.output_columns) + sorted(refs))
+        if c in rs or (c in refs and c in ls)
+    ]
+    inner = HashJoinNode(
+        uid, node.right, JoinType.INNER, node.left_keys, node.right_keys,
+        tuple(inner_out), node.filter,
+    )
+    return HashJoinNode(
+        uid, inner, JoinType.LEFT, (uid_name,), (uid_name,),
+        tuple(node.output_columns), id=node.id + "_ljf",
+    )

@@ -15,17 +15,20 @@ an aggregation collect their rows (``collect``), with a leading OrderBy / TopN
 run on the device (exec/sort.py).  Join build sides and every other non-scan
 source run as sub-executors when the executor is constructed.
 
-Not ported yet, each raising ``NotImplementedError`` by name: expansion joins
-(duplicate build keys), FULL joins, ``left_join_filter``, window / union /
-merge-exchange sources, the expand steps (unnest, group id, unique id), the
+An expansion (N:M) join splits the pipeline into phases: the steps up to
+it, its spans (one scalar read a tile sizes the power-of-two output bucket),
+its expansion, then the next phase (``_expand_tile``).
+
+Not ported yet, each raising ``NotImplementedError`` by name: FULL joins,
+window / union / merge-exchange sources, the unnest and group-id steps, the
 collect aggregates, spilling and the Grace join fallback.  The JAX package's
 split-dispatch programs, ``tjit`` and buffer donation exist for its compiler
 and have no counterpart here.
 
-Transfer discipline: nothing is fetched per tile on the device paths.  The
-sorted-carry path reads tile 0's run count once (to size the carry), then the
-count / overflow / error scalars and the live prefix at the end
-(utils/transfer.py).
+Transfer discipline: nothing is fetched per tile on the device paths but the
+output count of each expansion join.  The sorted-carry path reads tile 0's
+run count once (to size the carry), then the count / overflow / error scalars
+and the live prefix at the end (utils/transfer.py).
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from ..expr.ir import Expr, FieldAccess
 from ..io.table import Table
 from ..plan.nodes import (
     AggregationNode,
+    AssignUniqueIdNode,
+    EnforceSingleRowNode,
     FilterNode,
     HashJoinNode,
     JoinType,
@@ -58,7 +63,7 @@ from ..plan.nodes import (
 )
 from ..ops.compact import compact
 from ..utils.transfer import bucket_of, fetch_prefix, fetch_tree
-from ..vector.column import Batch, Encoding, _take_clamped
+from ..vector.column import Batch, Column, Encoding, _take_clamped
 from ..vector.string_table import StringTable
 from .aggregates import (
     BoundAggregate,
@@ -354,7 +359,9 @@ class _Linear:
 
     source: PlanNode  # a scan, or any node the executor materializes first
     # ('filter', Expr) | ('project', names, exprs, schema) | ('join', node,
-    # replaced by the built HashJoinExec when the executor is constructed)
+    # replaced by the built HashJoinExec when the executor is constructed;
+    # ('xjoin', exec) for an expansion join) | ('left_join_filter', Expr,
+    # build column names, node) | ('expand', AssignUniqueIdNode)
     steps: List[Tuple]
     agg: Optional[AggregationNode]
     finishers: List[PlanNode]  # OrderBy/TopN/Limit from bottom to top
@@ -363,7 +370,7 @@ class _Linear:
 def _linearize(root: PlanNode) -> _Linear:
     finishers: List[PlanNode] = []
     node = root
-    while isinstance(node, (OrderByNode, TopNNode, LimitNode)):
+    while isinstance(node, (OrderByNode, TopNNode, LimitNode, EnforceSingleRowNode)):
         finishers.append(node)
         node = node.sources[0]
     agg = None
@@ -371,12 +378,15 @@ def _linearize(root: PlanNode) -> _Linear:
         agg = node
         node = node.sources[0]
     steps_rev: List[Tuple] = []
-    while isinstance(node, (FilterNode, ProjectNode, HashJoinNode)):
+    while isinstance(node, (FilterNode, ProjectNode, HashJoinNode, AssignUniqueIdNode)):
         if isinstance(node, FilterNode):
             steps_rev.append(("filter", node.predicate))
             node = node.sources[0]
         elif isinstance(node, ProjectNode):
             steps_rev.append(("project", node.names, node.exprs, node.output_schema))
+            node = node.sources[0]
+        elif isinstance(node, AssignUniqueIdNode):
+            steps_rev.append(("expand", node))
             node = node.sources[0]
         else:
             if node.join_type in (JoinType.RIGHT, JoinType.RIGHT_SEMI):
@@ -396,12 +406,22 @@ def _linearize(root: PlanNode) -> _Linear:
                     node.filter,
                     id=node.id,
                 )
-            if node.filter is not None and node.join_type == JoinType.INNER:
+            if node.filter is not None and node.join_type in (JoinType.INNER, JoinType.LEFT):
                 # an INNER join's non-equi filter is semantically a filter
                 # above the join (the reference fuses it in HashProbe; same
-                # rows survive either way).  A filter on any other join type
-                # stays on the node, and building that join raises.
-                steps_rev.append(("filter", node.filter))
+                # rows survive either way); a LEFT join's filter nulls the
+                # build side of failing matches instead of dropping rows —
+                # requires the referenced columns in the join output.  A
+                # filter on any other join type stays on the node, and
+                # building that join raises.
+                if node.join_type == JoinType.INNER:
+                    steps_rev.append(("filter", node.filter))
+                else:
+                    ls, rs = node.left.output_schema, node.right.output_schema
+                    build_cols = frozenset(
+                        c for c in node.output_columns if c in rs and c not in ls
+                    )
+                    steps_rev.append(("left_join_filter", node.filter, build_cols, node))
                 node = dataclasses.replace(node, filter=None)
             # probe continues down the left (probe) side; the right (build)
             # side is executed when the pipeline is instantiated.
@@ -449,6 +469,8 @@ def _pipeline_sort_keys(steps) -> Tuple[str, ...]:
                 else:
                     break
             sorted_by = tuple(kept)
+        elif step[0] == "expand":
+            sorted_by = ()  # cardinality change invalidates ordering info
         # filters preserve order
     return sorted_by
 
@@ -475,6 +497,42 @@ def apply_streaming(batch: Batch, steps: Sequence[Tuple]):
             batch = batch.with_selection(keep)
         elif step[0] == "join":
             batch = step[1].probe(batch)
+        elif step[0] == "left_join_filter":
+            # LEFT join non-equi condition: matched rows failing the filter
+            # become UNMATCHED — probe rows stay, build-side columns null out
+            # (reference: HashProbe::applyFilter null-ing misses on LEFT).
+            # Unmatched rows evaluate the filter over nulls -> Kleene null ->
+            # already-null build columns stay null.
+            _, expr, build_cols, _ = step
+            [r] = ExprSet([expr]).eval(batch)
+            if r.errors is not None:
+                err = err + (r.errors & active).sum()
+            passed = r.values.to(torch.bool)
+            if r.validity is not None:
+                passed = passed & r.validity
+            new_cols = []
+            for name, col in zip(batch.schema.names, batch.columns):
+                if name in build_cols:
+                    fc = col.flatten(batch.capacity)
+                    v = passed if fc.validity is None else (fc.validity & passed)
+                    col = Column.flat(fc.data, fc.dtype, v, fc.strings)
+                new_cols.append(col)
+            batch = dataclasses.replace(batch, columns=tuple(new_cols))
+        elif step[0] == "expand":
+            # the JAX package's expand steps are unnest, group id and unique
+            # id; the first two are not ported (their nodes do not exist here)
+            node = step[1]
+            offset = (
+                batch.row_offset
+                if batch.row_offset is not None
+                else torch.zeros((), dtype=torch.int64, device=batch.device)
+            )
+            ids = (node.task_unique_id << 40) | (
+                offset + torch.arange(batch.capacity, dtype=torch.int64, device=batch.device)
+            )
+            batch = batch.with_columns(
+                node.output_schema, list(batch.columns) + [Column.flat(ids, node.output_schema.types[-1])]
+            )
         elif step[0] == "project":
             _, names, exprs, schema = step
             cols, errors = ExprSet(list(exprs)).eval_to_columns(batch)
@@ -1150,6 +1208,11 @@ def apply_finishers(table: Table, finishers: Sequence[PlanNode]) -> Table:
             table = _table_slice(table, order)
         elif isinstance(node, LimitNode):
             table = _table_slice(table, slice(node.offset, node.offset + node.count))
+        elif isinstance(node, EnforceSingleRowNode):
+            if table.num_rows > 1:
+                raise QueryError(
+                    f"scalar subquery produced {table.num_rows} rows, expected <= 1"
+                )
     return table
 
 
@@ -1200,7 +1263,12 @@ class LocalExecutor:
         device=None,
     ):
         from ..config import DEFAULT_CONFIG
-        from .joins import HashJoinExec
+        from .joins import (
+            DuplicateBuildKeys,
+            HashJoinExec,
+            rewrite_filtered_existence_joins,
+            rewrite_left_filter_nm,
+        )
         from .memory import ROOT_POOL
 
         self.device = resolve_device(device)
@@ -1216,9 +1284,13 @@ class LocalExecutor:
                 limit=self.config.query_memory_limit_bytes,
             )
         self.pool = pool
+        root = rewrite_filtered_existence_joins(root)
         self.root = root
         self.tile_rows = tile_rows
         self.build_seconds = 0.0
+        # (output bucket, rows) of every expansion the build sides and
+        # barriers ran while this executor was constructed
+        self.build_expansions: List[Tuple[int, int]] = []
         lin = _linearize(root)
 
         resolved: List[Tuple] = []
@@ -1230,22 +1302,58 @@ class LocalExecutor:
             node = step[1]
             sub = self._sub_executor(node.right)
             built = sub.run_device()
+            exec_ = None
             if built is not None:
                 # build data stays in device memory end to end
-                exec_ = HashJoinExec.build_from_device(node, *built)
-            else:
+                try:
+                    exec_ = HashJoinExec.build_from_device(node, *built)
+                except DuplicateBuildKeys:
+                    pass  # N:M build: the host path below constructs the per-key runs
+            if exec_ is None:
                 exec_ = HashJoinExec.build(node, sub.run(), device=self.device)
+            self.build_expansions += sub.build_expansions + sub.expansions
             self.pool.reserve(exec_.state_bytes())
             self.build_seconds += time.perf_counter() - t0
-            resolved.append(("join", exec_))
-        lin.steps = resolved
+            resolved.append(("xjoin" if exec_.expansion else "join", exec_))
+        for i, step in enumerate(resolved):
+            if step[0] == "left_join_filter" and i > 0 and resolved[i - 1][0] == "xjoin":
+                # non-equi filter on an N:M LEFT join: the single-candidate
+                # null-out path cannot see every match — plan again through
+                # the uid / inner / left composition (rewrite_left_filter_nm)
+                for done in resolved:
+                    if done[0] in ("join", "xjoin"):
+                        self.pool.release(done[1].state_bytes())
+                orig = step[3]
+                new_root = _replace_plan_node(self.root, orig, rewrite_left_filter_nm(orig))
+                self.__init__(new_root, tile_rows, config, pool=pool, device=self.device)
+                return
+        # expansion (N:M) joins split the pipeline into phases: the output
+        # row count is data-dependent, so each expansion is sized by one
+        # scalar read a tile and materialized into a power-of-two bucket
+        # before the steps after it run (_expand_tile)
+        self._pre_segments: List[Tuple] = []
+        cur: List[Tuple] = []
+        for step in resolved:
+            if step[0] == "xjoin":
+                self._pre_segments.append((tuple(cur), step[1]))
+                cur = []
+            else:
+                cur.append(step)
+        lin.steps = cur
+        self._all_steps = resolved  # incl. xjoin steps (schema tracking)
+        # of the last run: (output bucket, rows) of every expansion, a tile
+        # after another
+        self.expansions: List[Tuple[int, int]] = []
+        self._pending_errs: List[torch.Tensor] = []
         if not isinstance(lin.source, (TableScanNode, ValuesNode)):
             # Generic pipeline barrier: materialize the subtree (e.g. an
             # aggregation feeding a join probe side) and scan its result.
             t0 = time.perf_counter()
-            sub = self._sub_executor(lin.source).run()
+            sub = self._sub_executor(lin.source)
+            table = sub.run()
             self.build_seconds += time.perf_counter() - t0
-            lin.source = ValuesNode(sub, id=lin.source.id)
+            self.build_expansions += sub.build_expansions + sub.expansions
+            lin.source = ValuesNode(table, id=lin.source.id)
         self.lin = lin
         self.source_table = lin.source.table.select(
             list(lin.source.output_schema.names)
@@ -1280,7 +1388,7 @@ class LocalExecutor:
             # row count
             agg_max_rows = (
                 self.source_table.num_rows
-                if all(_keeps_rowbound(s) for s in lin.steps)
+                if not self._pre_segments and all(_keeps_rowbound(s) for s in lin.steps)
                 else None
             )
             ex = AggExecutor(lin.agg, self.capacity, presorted, max_rows=agg_max_rows)
@@ -1291,7 +1399,9 @@ class LocalExecutor:
                 # row-aligned with the aggregation input — the precondition
                 # for the piece-sum path (raw narrow columns in, one pass
                 # over every scanned byte)
-                rows_aligned = all(s[0] in ("filter", "project") for s in lin.steps)
+                rows_aligned = not self._pre_segments and all(
+                    s[0] in ("filter", "project") for s in lin.steps
+                )
                 self.use_piece = rows_aligned and ex.try_enable_piece_path()
             elif self.config.device_agg_merge:
                 self.kind = "sort_agg_device"
@@ -1300,11 +1410,13 @@ class LocalExecutor:
         else:
             self.kind = "collect"
             out_schema = lin.source.output_schema
-            for step in lin.steps:
+            for step in self._all_steps:
                 if step[0] == "project":
                     out_schema = step[3]
-                elif step[0] == "join":
+                elif step[0] in ("join", "xjoin"):
                     out_schema = step[1].node.output_schema
+                elif step[0] == "expand":
+                    out_schema = step[1].output_schema
             self.out_schema = out_schema
             self._plan_device_sort()
 
@@ -1361,16 +1473,57 @@ class LocalExecutor:
         return compact(batch2), err
 
     def _tile_source(self, prefetched_tiles):
-        """(iterator of tiles, tile count) for one run."""
+        """(iterator of tiles, tile count) for one run; a pipeline with
+        expansion joins yields each tile after its expansion phases."""
         if prefetched_tiles is not None:
             if any(t.capacity != self.capacity for t in prefetched_tiles):
                 raise ValueError(
                     f"prefetched tiles must have capacity {self.capacity}"
                 )
-            return (lambda: iter(prefetched_tiles)), len(prefetched_tiles)
-        return (
-            lambda: self.source_table.tiles(self.capacity, self.device)
-        ), self.source_table.num_tiles(self.capacity)
+            make, n = (lambda: iter(prefetched_tiles)), len(prefetched_tiles)
+        else:
+            make = lambda: self.source_table.tiles(self.capacity, self.device)  # noqa: E731
+            n = self.source_table.num_tiles(self.capacity)
+        if not self._pre_segments:
+            return make, n
+        return (lambda: self._expanded_tiles(make())), n
+
+    def _expanded_tiles(self, tiles):
+        self.expansions = []
+        self._pending_errs = []
+        self._expanded_rows = 0
+        for tile in tiles:
+            yield self._expand_tile(tile)
+
+    def _expand_tile(self, batch: Batch) -> Batch:
+        """Run the expansion-join phases on one tile: each phase's steps, the
+        spans, ONE scalar read of the output row count (it sizes the
+        power-of-two output bucket), the expansion.  The expanded batch's
+        row offset continues over the run, so unique ids assigned after it
+        stay unique across tiles (the JAX package leaves it unset: ids start
+        at 0 in every expanded tile)."""
+        for steps, ex in self._pre_segments:
+            batch, err = apply_streaming(batch, steps)
+            self._pending_errs.append(err)
+            spans = ex.probe_spans(batch)
+            total = int(fetch_tree(spans[3]))
+            out_cap = bucket_of(max(total, 1))
+            self.expansions.append((out_cap, total))
+            batch = ex.expand(batch, spans[:3], out_cap)
+            batch = dataclasses.replace(
+                batch,
+                row_offset=torch.tensor(self._expanded_rows, dtype=torch.int64, device=batch.device),
+            )
+            self._expanded_rows += total
+        return batch
+
+    def _drain_pending_errs(self) -> int:
+        """Errors of the steps before the expansion joins, read once."""
+        if not self._pending_errs:
+            return 0
+        total = sum(int(e) for e in fetch_tree(self._pending_errs))
+        self._pending_errs = []
+        return total
 
     def run(
         self,
@@ -1399,7 +1552,7 @@ class LocalExecutor:
             (accs_np, rowcounts_np), errs = fetch_tree(carry)
             if stats is not None:
                 stats.device_seconds = time.perf_counter() - t0
-            _raise_on_errors(int(errs))
+            _raise_on_errors(int(errs) + self._drain_pending_errs())
             result = ex.extract(None, accs_np, rowcounts_np)
         elif self.kind == "sort_agg_device":
             result = self._run_sort_agg_device(make_tiles, n_tiles, stats)
@@ -1488,7 +1641,7 @@ class LocalExecutor:
         fetched = fetch_prefix(flat, count)
         if stats is not None:
             stats.device_seconds = time.perf_counter() - t0
-        _raise_on_errors(int(errs))
+        _raise_on_errors(int(errs) + self._drain_pending_errs())
         nkeys = len(ex.key_infos)
         accs_np = []
         i = nkeys
@@ -1605,7 +1758,7 @@ class LocalExecutor:
             acc_chunks.append(accs_np)
         if stats is not None:
             stats.device_seconds = time.perf_counter() - t0
-        _raise_on_errors(err_total)
+        _raise_on_errors(err_total + self._drain_pending_errs())
         group_keys, merged = ex.merge_partials_host(key_chunks, acc_chunks)
         result = ex.extract(group_keys, merged)
         self.groups_out = result.num_rows
@@ -1639,7 +1792,7 @@ class LocalExecutor:
         outs = [self._tile_out(tile) for tile in make_tiles()]
         lens_errs = fetch_tree([(o.length, e) for o, e in outs])
         # fail BEFORE host assembly
-        _raise_on_errors(sum(int(e) for _, e in lens_errs))
+        _raise_on_errors(sum(int(e) for _, e in lens_errs) + self._drain_pending_errs())
         parts = []
         strings: Dict[str, StringTable] = {}
         for (out, _), (n, _) in zip(outs, lens_errs):
@@ -1682,7 +1835,7 @@ class LocalExecutor:
         arrays = fetch_prefix(list(flat), n)
         if stats is not None:
             stats.device_seconds = time.perf_counter() - t0
-        _raise_on_errors(sum(int(e) for e in errs_np))
+        _raise_on_errors(sum(int(e) for e in errs_np) + self._drain_pending_errs())
         return self._result_table(arrays, layout, strings)
 
     def run_device(self):
@@ -1695,11 +1848,12 @@ class LocalExecutor:
         if self.kind != "collect" or self.lin.finishers:
             return None
         batches, errs = [], []
-        for tile in self.source_table.tiles(self.capacity, self.device):
+        make_tiles, _ = self._tile_source(None)
+        for tile in make_tiles():
             out, e = self._tile_out(tile)
             batches.append(out)
             errs.append(e)
-        return batches, tuple(errs)
+        return batches, tuple(errs) + tuple(self._pending_errs)
 
     def device_tiles(self) -> List[Batch]:
         """Upload the source scan device-resident (steady-state benchmarking)."""
@@ -1717,14 +1871,35 @@ class LocalExecutor:
 
 def _keeps_rowbound(step) -> bool:
     """Can this pipeline step only keep or drop rows (never multiply them)?"""
-    if step[0] in ("filter", "project"):
+    if step[0] in ("filter", "project", "left_join_filter", "expand"):
         return True
     if step[0] == "join":
-        # every join built here has a unique (or deduplicated) build side
+        # a "join" step has a unique (or deduplicated) build side; expansion
+        # joins are "xjoin" steps
         return step[1].node.join_type in (
             JoinType.INNER, JoinType.LEFT, JoinType.LEFT_SEMI, JoinType.ANTI
         )
     return False
+
+
+def _replace_plan_node(root: PlanNode, target: PlanNode, replacement: PlanNode) -> PlanNode:
+    """Rebuild the plan with ``target`` (by identity or id: _linearize may hand
+    back a reconstructed node that kept the tree id) swapped for
+    ``replacement``; the nodes above it are re-created."""
+
+    def walk(node: PlanNode) -> PlanNode:
+        if node is target or node.id == target.id:
+            return replacement
+        changed = {}
+        for attr in ("source", "left", "right"):
+            child = getattr(node, attr, None)
+            if isinstance(child, PlanNode):
+                new = walk(child)
+                if new is not child:
+                    changed[attr] = new
+        return dataclasses.replace(node, **changed) if changed else node
+
+    return walk(root)
 
 
 def _batch_strings(batch: Batch) -> Dict[str, StringTable]:

@@ -9,7 +9,7 @@ as unscaled int64 at an aligned scale (the registry's common-numeric coercion
 inserts rescale casts), so decimal plus/minus/compare are plain int64 ops.
 
 Registered here: plus, minus, multiply, divide, mod, negate, abs,
-date_add_days, the six comparisons, between, is_null, is_not_null, not, and the
+date_add_days, year, the six comparisons, between, is_null, is_not_null, not, and the
 type-resolution signatures of the dictionary-bound string functions
 (expr/binding.py).  Math, bitwise, calendar, timestamp, probability and JSON
 families come with later slices; an unregistered name raises ``KeyError``
@@ -242,3 +242,40 @@ _reg.register(
     BOOLEAN,
     lambda ctx, out_t, arg_ts, a: ~a,
 )
+
+
+# ---- datetime ------------------------------------------------------------
+#
+# DATE is int32 days since 1970-01-01.  The civil-calendar decomposition is
+# the days-to-(y, m, d) algorithm over the proleptic Gregorian calendar, in
+# integer tensor ops.  Only ``year`` is registered: no ported plan or SQL text
+# binds quarter, month or day.
+
+
+def _civil_from_days(z: torch.Tensor):
+    z = z.to(torch.int64) + 719468
+    era = torch.div(z, 146097, rounding_mode="floor")
+    doe = z - era * 146097  # [0, 146096]
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365  # [0, 399]
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)  # [0, 365]
+    mp = (5 * doy + 2) // 153  # [0, 11]
+    d = doy - (153 * mp + 2) // 5 + 1  # [1, 31]
+    m = torch.where(mp < 10, mp + 3, mp - 9)  # [1, 12]
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d, doy
+
+
+def _date_days(values: torch.Tensor, dtype: DataType) -> torch.Tensor:
+    if dtype.kind == TypeKind.TIMESTAMP:
+        return torch.div(values, 86_400_000_000, rounding_mode="floor")
+    return values
+
+
+def _year(ctx, out_t, arg_ts, a):
+    y, _, _, _ = _civil_from_days(_date_days(a, arg_ts[0]))
+    return y.to(torch.int64)
+
+
+_reg.register("year", [TypeKind.DATE], BIGINT, _year)
+_reg.register("year", [TypeKind.TIMESTAMP], BIGINT, _year)

@@ -22,6 +22,12 @@ a gather or one scatter into run slots:
   for every accumulator: ``reduce`` (sum / min / max), ``first``,
   ``start_positions``, ``run_mask``.
 * ``segmented_scan`` — inclusive scan that resets at segment starts.
+* ``last_flagged`` / ``next_flagged`` — the value at the last flagged row at
+  or before each row (the next one at or after it): the propagation the
+  reference writes as a running maximum (``lax.cummax``), built here from a
+  prefix count of the flags, one scatter and one gather.  torch's
+  ``cummax`` / ``cummin`` give one row of a tensor to one block, so on a
+  column of 2^24 rows they run 50x slower than these three passes.
 
 Index tensors (``run_index``, ``end_positions``, ``start_positions``) are int64,
 the dtype torch indexes with; the JAX package holds them as int32.  Gathers
@@ -143,6 +149,36 @@ sparse_table_query = _not_ported("sparse_table_query")
 rank_in_segments = _not_ported("rank_in_segments")
 
 
+def _flagged_table(flags: torch.Tensor, values: torch.Tensor, fill):
+    """(table, count): ``count[i]`` = flagged rows at or before row i;
+    ``table[c]`` = the value at the c-th flagged row (1-based), ``table[0]``
+    and every slot past the last flagged row = ``fill``.  Unflagged rows
+    scatter into the spare last slot, which is never read."""
+    n = flags.shape[0]
+    count = torch.cumsum(flags, 0, dtype=torch.int64)
+    slot = torch.where(flags, count, torch.full_like(count, n + 1))
+    table = torch.full((n + 2,), fill, dtype=values.dtype, device=values.device)
+    return table.scatter_(0, slot, values), count
+
+
+def last_flagged(flags: torch.Tensor, values: torch.Tensor, fill) -> torch.Tensor:
+    """Per row, ``values`` at the last row at or before it where ``flags``
+    holds, ``fill`` where there is none.  Equals ``torch.cummax`` of
+    ``where(flags, values, fill)`` whenever the flagged values do not
+    decrease and ``fill`` is below them: each call site states why."""
+    table, count = _flagged_table(flags, values, fill)
+    return table.index_select(0, count)
+
+
+def next_flagged(flags: torch.Tensor, values: torch.Tensor, fill) -> torch.Tensor:
+    """Per row, ``values`` at the first row at or after it where ``flags``
+    holds, ``fill`` where there is none (the mirror of ``last_flagged``:
+    a reversed ``cummin`` when the flagged values do not decrease and
+    ``fill`` is above them)."""
+    table, count = _flagged_table(flags, values, fill)
+    return table.index_select(0, count - flags.to(torch.int64) + 1)
+
+
 def segmented_scan(values: torch.Tensor, boundary: torch.Tensor, op: str) -> torch.Tensor:
     """Inclusive scan of ``op`` that resets at rows where boundary=True.
 
@@ -150,14 +186,17 @@ def segmented_scan(values: torch.Tensor, boundary: torch.Tensor, op: str) -> tor
     integers: wrapping cancels; floats round as two prefix sums do).
     min / max: the segment id is non-decreasing, so the running extreme of the
     pair (segment id, value rank) is the segmented running extreme; ranks come
-    from one stable sort."""
+    from one stable sort.  That is a true running maximum, not a propagation,
+    so it stays on ``torch.cummax``; no path of the engine calls it."""
     n = values.shape[0]
     if n == 0:
         return values.clone()
     iota = torch.arange(n, dtype=torch.int64, device=values.device)
     if op == "sum":
         totals = torch.cumsum(values, 0)
-        start = torch.cummax(torch.where(boundary, iota, torch.zeros_like(iota)), 0).values
+        # positions increase, so the last boundary's position is their
+        # running maximum
+        start = last_flagged(boundary, iota, 0)
         before = torch.where(
             start > 0, _take(totals, start - 1), torch.zeros_like(totals)
         )
@@ -191,8 +230,9 @@ def run_boundaries(diff: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     head = diff.clone()
     head[0] = True
     region = torch.cumsum(head, 0)
-    live_region = torch.where(mask, region, torch.zeros_like(region))
-    prev_live_region = _shift_in(0, torch.cummax(live_region, 0).values)
+    # region ids never decrease, so the last live row's region is the
+    # running maximum of the live rows' regions
+    prev_live_region = _shift_in(0, last_flagged(mask, region, 0))
     return mask & (prev_live_region != region)
 
 
@@ -211,12 +251,13 @@ def run_is_end(
     if run_index is None:
         run_index = torch.cumsum(boundary, 0) - 1
     big = cap + 1
-    live_rid = torch.where(mask, run_index, torch.full_like(run_index, big))
-    nxt_live_rid = torch.cat(
-        [live_rid[1:], torch.full((1,), big, dtype=live_rid.dtype, device=live_rid.device)]
+    # run ids never decrease, so the least run id of the later live rows is
+    # the id of the next live row: the first live row at or after i + 1
+    at_or_after = next_flagged(mask, run_index, big)
+    next_live_rid = torch.cat(
+        [at_or_after[1:], torch.full((1,), big, dtype=run_index.dtype, device=run_index.device)]
     )
-    suffix_min = torch.cummin(nxt_live_rid.flip(0), 0).values.flip(0)
-    return mask & (suffix_min != run_index)
+    return mask & (next_live_rid != run_index)
 
 
 class SortedRuns:
@@ -275,15 +316,15 @@ class SortedRuns:
     def first(self, values: torch.Tensor) -> torch.Tensor:
         """Value at each run's first row (e.g. the key itself): slot r = run r.
 
-        One cummax over boundary positions (kept for the next column) + two
-        gathers.  Dead rows interleaved with a run inherit the last
-        boundary's index, so merged-order join output is handled."""
+        The last boundary's position at or before each row (kept for the next
+        column) + two gathers.  Dead rows interleaved with a run inherit the
+        last boundary's index, so merged-order join output is handled."""
         if self.capacity == 0:
             return values.clone()
         if self._start_of_row is None:
             iota = torch.arange(self.capacity, dtype=torch.int64, device=values.device)
-            marked = torch.where(self.boundary, iota, torch.full_like(iota, -1))
-            self._start_of_row = torch.cummax(marked, 0).values.clamp(min=0)
+            # positions increase: the last boundary is the running maximum
+            self._start_of_row = last_flagged(self.boundary, iota, 0)
         return _take(_take(values, self._start_of_row), self.end_positions)
 
     def run_mask(self) -> torch.Tensor:

@@ -6,9 +6,10 @@ expressions, method chaining for operators, automatic projection of aggregate
 arguments, automatic string-literal binding against scan dictionaries.
 
 Ported so far: ``table_scan``, ``values``, ``filter``, ``project``,
-``aggregation`` (plain aggregates), ``hash_join``, ``orderby``, ``topn``,
-``limit``, ``build``.  Every other method of the reference's class raises
-``NotImplementedError`` naming the slice that brings it.
+``aggregation`` (plain aggregates and ``count(distinct x)``), ``hash_join``,
+``cross_join``, ``assign_unique_id``, ``enforce_single_row``, ``orderby``,
+``topn``, ``limit``, ``build``.  Every other method of the reference's class
+raises ``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from ..io.table import Table
 from .nodes import (
     AggregationNode,
     AggregationStep,
+    AssignUniqueIdNode,
+    EnforceSingleRowNode,
     FilterNode,
     HashJoinNode,
     JoinType,
@@ -166,13 +169,15 @@ class PlanBuilder:
         aggregates: Sequence[str],
         step: Union[str, AggregationStep] = AggregationStep.SINGLE,
     ) -> "PlanBuilder":
-        """aggregates: 'sum(expr) as name' strings.  Non-field arguments are
-        auto-projected first (the reference PlanBuilder does the same).
-        Distinct aggregates, approx_distinct, approx_most_frequent and
-        reduce_agg lower onto joins, windows or sketches and are not ported
-        yet."""
+        """aggregates: 'sum(expr) as name' strings ('count(distinct x)'
+        supported).  Non-field arguments are auto-projected first (the
+        reference PlanBuilder does the same); distinct aggregates rewrite into
+        a dedupe aggregation feeding a count (the physical plan the
+        reference's planner also emits).  approx_distinct,
+        approx_most_frequent and reduce_agg lower onto sketches and windows
+        and are not ported yet."""
         step = AggregationStep(step)
-        parsed = []  # (fn, [arg texts], name)
+        parsed = []  # (fn, [arg texts], name, is_distinct)
         for i, item in enumerate(aggregates):
             m = _AS_RE.match(item)
             if m:
@@ -184,21 +189,25 @@ class PlanBuilder:
                 raise ValueError(f"cannot parse aggregate {item!r}")
             fn = call_m.group("fn").lower()
             argtext = call_m.group("arg").strip()
-            if (
-                fn in ("approx_distinct", "approx_most_frequent", "reduce_agg")
-                or argtext.lower().startswith("distinct ")
-            ):
+            if fn in ("approx_distinct", "approx_most_frequent", "reduce_agg"):
                 raise NotImplementedError(
-                    f"aggregate {item!r}: distinct and sketch aggregates are "
-                    "not ported yet; they come with the remaining TPC-H plans "
-                    "and the sketch slice"
+                    f"aggregate {item!r}: sketch aggregates are not ported "
+                    "yet; they come with the sketch slice"
                 )
-            if fn == "count" and argtext in ("*", ""):
+            distinct = False
+            if argtext.lower().startswith("distinct "):
+                distinct = True
+                argtext = argtext[len("distinct "):].strip()
+            if fn == "count" and argtext in ("*", "") and not distinct:
                 args: List[str] = []
             else:
                 args = _split_call_args(argtext)
-            parsed.append((fn, args, name))
-        return self._plain_aggregation(grouping_keys, parsed, step)
+            parsed.append((fn, args, name, distinct))
+        if any(d for _, _, _, d in parsed):
+            return self._aggregation_with_distinct(grouping_keys, parsed, step)
+        return self._plain_aggregation(
+            grouping_keys, [(f, a, n) for f, a, n, _ in parsed], step
+        )
 
     def _plain_aggregation(self, grouping_keys, items, step) -> "PlanBuilder":
         """items: (fn, [arg texts], output name)."""
@@ -247,6 +256,107 @@ class PlanBuilder:
             tuple(n for _, _, n in items),
             tuple(calls),
         )
+        return self
+
+    def _aggregation_with_distinct(self, grouping_keys, parsed, step) -> "PlanBuilder":
+        """Split distinct and plain aggregates into separate aggregations over
+        the same subtree and join the parts back on the grouping keys (an
+        all-constant key when there are none)."""
+        keys = list(grouping_keys)
+        base = self.node
+        regular = [(f, a, n) for f, a, n, d in parsed if not d]
+        distincts = [(f, a, n) for f, a, n, d in parsed if d]
+        parts: List[PlanBuilder] = []
+        if regular:
+            parts.append(PlanBuilder(base)._plain_aggregation(keys, regular, step))
+        for fn, args, name in distincts:
+            if fn != "count":
+                raise NotImplementedError(
+                    f"distinct is only supported for count, not {fn}"
+                )
+            if len(args) != 1:
+                raise ValueError("count(distinct ...) takes one argument")
+            pb = PlanBuilder(base)
+            tmp = f"_d_{name}"
+            pb.project(list(keys) + [f"{args[0]} as {tmp}"])
+            pb._plain_aggregation(keys + [tmp], [("count", [], "_c")], step)
+            pb._plain_aggregation(keys, [("count", [], name)], step)
+            parts.append(pb)
+
+        join_keys = keys
+        if not keys:
+            # single-row parts: join on a constant key
+            join_keys = ["_one"]
+            for pb in parts:
+                cols = list(pb.schema.names)
+                pb.project(cols + ["1 as _one"])
+        else:
+            # NULL-safe join keys: a NULL grouping key forms one group (SQL
+            # semantics), but join keys with NULL never match — so each part
+            # projects per key an is-null flag plus a zero-coalesced value
+            # and the parts re-join on those (reference: GroupingSet NULL-key
+            # handling, velox/exec/GroupingSet.cpp).
+            join_keys = []
+            for j, k in enumerate(keys):
+                join_keys += [f"_nj{j}", f"_vj{j}"]
+            for pb in parts:
+                s = pb.schema
+                texts = list(s.names)
+                for j, k in enumerate(keys):
+                    kt = s.type_of(k)
+                    texts.append(f"cast({k} is null as bigint) as _nj{j}")
+                    # any in-domain default works: the is-null flag
+                    # disambiguates a real default from a coalesced NULL.
+                    # project() binds the string literal through the
+                    # column's dictionary
+                    default = "''" if kt.is_string else "0"
+                    texts.append(f"coalesce({k}, {default}) as _vj{j}")
+                pb.project(texts)
+        result = parts[0]
+        for pb in parts[1:]:
+            build_cols = [
+                n for n in pb.schema.names
+                if n not in join_keys and n not in result.schema.names
+            ]
+            result.hash_join(
+                pb, join_keys, join_keys,
+                output=list(result.schema.names) + build_cols,
+            )
+        out_names = list(grouping_keys) + [n for _, _, n, _ in parsed]
+        result.project(out_names)
+        self.node = result.node
+        return self
+
+    def assign_unique_id(
+        self, name: str = "unique_id", task_unique_id: int = 0
+    ) -> "PlanBuilder":
+        self.node = AssignUniqueIdNode(self.node, name, task_unique_id)
+        return self
+
+    def enforce_single_row(self) -> "PlanBuilder":
+        """Reference: core::EnforceSingleRowNode."""
+        self.node = EnforceSingleRowNode(self.node)
+        return self
+
+    def cross_join(
+        self,
+        right: Union["PlanBuilder", PlanNode],
+        output: Sequence[str],
+        filter: Optional[str] = None,
+    ) -> "PlanBuilder":
+        """Cartesian product (reference: core::NestedLoopJoinNode +
+        exec/NestedLoopJoinProbe.cpp).  Lowered onto the expansion hash join
+        with a constant key on both sides — every probe row matches the whole
+        build side, which is exactly the nested-loop product; an optional
+        filter lands above (the reference's join condition)."""
+        right_node = right.node if isinstance(right, PlanBuilder) else right
+        rb = PlanBuilder(right_node).project(
+            list(right_node.output_schema.names) + ["1 as __xk_r"]
+        )
+        self.project(list(self.schema.names) + ["1 as __xk_l"])
+        self.hash_join(rb, ["__xk_l"], ["__xk_r"], output=list(output))
+        if filter:
+            self.filter(filter)
         return self
 
     def _sort_keys(self, keys: Sequence[str]):
@@ -315,17 +425,14 @@ class PlanBuilder:
         return self.node
 
     # ---- later slices ----------------------------------------------------
-    cross_join = _later("cross_join", "expansion joins")
-    nested_loop_join = _later("nested_loop_join", "expansion joins")
-    union_all = _later("union_all", "remaining TPC-H plans")
-    merge_exchange = _later("merge_exchange", "remaining TPC-H plans")
+    nested_loop_join = _later("nested_loop_join", "non-equi joins")
+    union_all = _later("union_all", "union")
+    merge_exchange = _later("merge_exchange", "union")
     window = _later("window", "window")
     row_number = _later("row_number", "window")
     topn_row_number = _later("topn_row_number", "window")
     mark_distinct = _later("mark_distinct", "window")
-    enforce_single_row = _later("enforce_single_row", "remaining TPC-H plans")
     unnest = _later("unnest", "complex types")
     group_id = _later("group_id", "complex types")
-    assign_unique_id = _later("assign_unique_id", "complex types")
     arrow_stream = _later("arrow_stream", "file formats")
     table_write = _later("table_write", "file formats")

@@ -6,9 +6,9 @@ plans are *fully specified physical plans* — no SQL, no optimizer; an
 integrator (or PlanBuilder) constructs the tree.
 
 This package has the nodes its executor runs so far: TableScan, Values,
-Filter, Project, Aggregation, HashJoin, and the finishers OrderBy / TopN /
-Limit.  Unnest, group-id, window, exchange and table-write nodes come with the
-slices that execute them.
+Filter, Project, Aggregation, HashJoin, AssignUniqueId, and the finishers
+OrderBy / TopN / Limit / EnforceSingleRow.  Unnest, group-id, window, union,
+exchange and table-write nodes come with the slices that execute them.
 
 Nodes carry typed expressions from ``expr``; output schemas are computed
 bottom-up at construction.
@@ -21,7 +21,7 @@ import itertools
 from enum import Enum
 from typing import List, Optional, Tuple
 
-from ..dtypes import DataType, RowType
+from ..dtypes import BIGINT, DataType, RowType
 from ..expr.ir import Call, Expr
 from ..io.table import Table
 
@@ -178,6 +178,37 @@ class LimitNode(PlanNode):
     def __post_init__(self):
         self.sources = (self.source,)
         self.output_schema = self.source.output_schema
+
+
+@dataclasses.dataclass
+class EnforceSingleRowNode(PlanNode):
+    """Fail unless at most one row is produced (reference: PlanNode.h
+    EnforceSingleRowNode, used under scalar subqueries)."""
+
+    source: PlanNode
+    id: str = dataclasses.field(default_factory=lambda: _next_id("single"))
+
+    def __post_init__(self):
+        self.sources = (self.source,)
+        self.output_schema = self.source.output_schema
+
+
+@dataclasses.dataclass
+class AssignUniqueIdNode(PlanNode):
+    """Append a unique BIGINT id per row (reference: core::AssignUniqueIdNode,
+    exec/AssignUniqueId.cpp — id = task-unique bits | row counter)."""
+
+    source: PlanNode
+    id_name: str = "unique_id"
+    task_unique_id: int = 0
+    id: str = dataclasses.field(default_factory=lambda: _next_id("uniqueid"))
+
+    def __post_init__(self):
+        self.sources = (self.source,)
+        src = self.source.output_schema
+        self.output_schema = RowType(
+            list(src.names) + [self.id_name], list(src.types) + [BIGINT]
+        )
 
 
 class JoinType(str, Enum):
