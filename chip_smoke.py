@@ -57,7 +57,19 @@ data is the same in every run.  The script
    generated once, with every column any query reads.  A plan whose
    aggregation takes the piece path launches ``grouped_piece_sums`` as Q1
    does (``k2_launches``);
-9. prints a ``summary`` line (every query's time in one place), the
+9. runs the window and set-operation slice (``tpch_window``: one line each)
+   over the same tables: the SQL texts of ``WINDOW_SQL`` (W1 and W2, TPC-H
+   Q2 and Q15 with their subqueries written as windows, held against those
+   queries' oracles; W3, a window over every ``orders`` row by customer; W4,
+   one over every ``lineitem`` row by order, cut into passes of whole
+   partitions, at SF 1 when ``--sf`` is larger (``WINDOW_AT_SF1``); F1 and F2, FULL joins plain and with a non-equi condition;
+   U1, UNION ALL; N1, a join with no equality) and the two ``window_plan``
+   plans (a MergeExchange of two sorted ``orders`` branches, and
+   ``topn_row_number``), each row-exact against its numpy oracle, with the
+   window passes, the device's peak memory and ``query_ms`` (the whole query
+   from host tables) beside its device time; none of them launches a
+   hand-written kernel;
+10. prints a ``summary`` line (every query's time in one place), the
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line; any failure ends the run with a traceback
@@ -93,6 +105,357 @@ LONG_QUERY_S = 10.0
 # 60 M lineitem rows).  Their hand-built plans run at ``--sf``; the texts run
 # at SF 1 when ``--sf`` is larger, to keep the script inside its time.
 SQL_AT_SF1 = (3, 5, 7, 8, 10, 13, 18, 21)
+# window-slice texts that run at SF 1 when ``--sf`` is larger, with their
+# tile rows there: W4 over every SF-10 ``lineitem`` row took 20 s a run with
+# an H100 (about 2 minutes with its oracle and profiled run); at SF 1, 6 M
+# rows in tiles of 2^21 are still cut into window passes of whole partitions
+WINDOW_AT_SF1 = {"W4": 1 << 21}
+
+
+# ---------------------------------------------------------------------------
+# The window / set-operation slice: SQL texts over the TPC-H tables and the
+# numpy oracles they are held against (W1 and W2 against the oracles of Q2 and
+# Q15, whose subqueries they write as windows).  The tests run the same texts
+# through both packages' ``run_sql`` at SF 0.01.
+
+WINDOW_SQL = {
+    # Q2 with its correlated min(ps_supplycost) subquery as a window
+    "W1": """
+select s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address, s_phone, s_comment
+from (select s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address, s_phone,
+             s_comment, ps_supplycost,
+             min(ps_supplycost) over (partition by p_partkey) as min_cost
+      from partsupp, part, supplier, nation, region
+      where p_partkey = ps_partkey and s_suppkey = ps_suppkey
+        and p_size = 15 and p_type like '%BRASS'
+        and s_nationkey = n_nationkey and n_regionkey = r_regionkey
+        and r_name = 'EUROPE') w
+where ps_supplycost = min_cost
+order by s_acctbal desc, n_name, s_name, p_partkey
+limit 100
+""",
+    # Q15 with its max(total_revenue) subquery as a global window
+    "W2": """
+select s_suppkey, s_name, s_address, s_phone, total_revenue
+from (select s_suppkey, s_name, s_address, s_phone, total_revenue,
+             max(total_revenue) over () as max_revenue
+      from supplier,
+           (select l_suppkey as supplier_no,
+                   sum(l_extendedprice * (1 - l_discount)) as total_revenue
+            from lineitem
+            where l_shipdate >= date '1996-01-01'
+              and l_shipdate < date '1996-04-01'
+            group by l_suppkey) revenue0
+      where s_suppkey = supplier_no) w
+where total_revenue = max_revenue
+order by s_suppkey
+""",
+    # every orders row, about one partition per customer
+    "W3": """
+select o_orderkey, o_custkey, o_orderdate, o_totalprice,
+  row_number() over (partition by o_custkey order by o_orderdate, o_orderkey) as rn,
+  rank() over (partition by o_custkey order by o_totalprice desc) as rk,
+  lag(o_totalprice) over (partition by o_custkey order by o_orderdate, o_orderkey) as prev_price,
+  sum(o_totalprice) over (partition by o_custkey order by o_orderdate, o_orderkey
+                          rows between 2 preceding and current row) as sum3,
+  max(o_totalprice) over (partition by o_custkey order by o_orderdate, o_orderkey
+                          rows between 3 preceding and current row) as max4,
+  min(o_totalprice) over (partition by o_custkey order by o_orderdate) as run_min,
+  count(o_orderkey) over (partition by o_custkey order by o_orderdate
+                          range between 30 preceding and current row) as cnt30
+from orders
+""",
+    # every lineitem row, one partition per order: chunks of whole partitions
+    "W4": """
+select l_orderkey, l_linenumber, l_extendedprice, l_quantity, l_shipdate,
+  row_number() over (partition by l_orderkey order by l_extendedprice desc, l_linenumber) as rn,
+  sum(l_quantity) over (partition by l_orderkey order by l_extendedprice desc, l_linenumber
+                        rows between 1 preceding and current row) as qty2,
+  lag(l_shipdate) over (partition by l_orderkey order by l_extendedprice desc, l_linenumber)
+    as prev_ship
+from lineitem
+""",
+    # FULL OUTER JOIN, unmatched rows on both sides
+    "F1": """
+select count(c_custkey) as customers, count(o_orderkey) as orders_n, count(*) as pairs,
+       sum(o_totalprice) as total
+from (select c_custkey, c_acctbal from customer where c_mktsegment = 'BUILDING') c
+full outer join
+     (select o_orderkey, o_custkey, o_totalprice from orders
+      where o_orderdate < date '1995-03-15') o
+  on c_custkey = o_custkey
+""",
+    # F1 with a non-equi condition in ON: rewrite_full_filter
+    "F2": """
+select count(c_custkey) as customers, count(o_orderkey) as orders_n, count(*) as pairs,
+       sum(o_totalprice) as total
+from (select c_custkey, c_acctbal from customer where c_mktsegment = 'BUILDING') c
+full outer join
+     (select o_orderkey, o_custkey, o_totalprice from orders
+      where o_orderdate < date '1995-03-15') o
+  on c_custkey = o_custkey and o_totalprice > c_acctbal * 10
+""",
+    "U1": """
+select nationkey, count(*) as n, sum(acctbal) as total
+from (select c_nationkey as nationkey, c_acctbal as acctbal from customer
+      union all
+      select s_nationkey as nationkey, s_acctbal as acctbal from supplier) u
+group by nationkey
+order by nationkey
+""",
+    # a join with no equality: the nested-loop lowering
+    "N1": """
+select count(*) as pairs, sum(s_acctbal) as total
+from supplier join nation on s_nationkey < n_nationkey
+""",
+}
+
+# the TPC-H tables and columns each text reads (W1 and W2 read Q2's and Q15's)
+WINDOW_COLUMNS = {
+    "W3": {"orders": ("o_orderkey", "o_custkey", "o_orderdate", "o_totalprice")},
+    "W4": {"lineitem": ("l_orderkey", "l_linenumber", "l_extendedprice", "l_quantity",
+                        "l_shipdate")},
+    "F1": {"customer": ("c_custkey", "c_mktsegment", "c_acctbal"),
+           "orders": ("o_orderkey", "o_custkey", "o_orderdate", "o_totalprice")},
+    "U1": {"customer": ("c_nationkey", "c_acctbal"), "supplier": ("s_nationkey", "s_acctbal")},
+    "N1": {"supplier": ("s_nationkey", "s_acctbal"), "nation": ("n_nationkey",)},
+}
+WINDOW_COLUMNS["F2"] = WINDOW_COLUMNS["F1"]
+WINDOW_QUERY = {"W1": 2, "W2": 15}  # the TPC-H query whose tables and oracle a text takes
+
+
+def _col(table, name):
+    import numpy as np
+
+    return np.asarray(table.columns[name]).astype(np.int64)
+
+
+def _packed(fields):
+    """One int64 per row from (non-negative int64 values, bits) fields, most
+    significant first: a single-key sort order for several keys."""
+    import numpy as np
+
+    word = np.zeros(len(fields[0][0]), np.int64)
+    total = 0
+    for values, bits in fields:
+        assert values.min(initial=0) >= 0 and values.max(initial=0) < (1 << bits), bits
+        word = (word << bits) | values
+        total += bits
+    assert total <= 63, total
+    return word
+
+
+def _partition_starts(part_sorted):
+    """Per row of rows sorted by partition, the position of its partition's
+    first row."""
+    import numpy as np
+
+    n = len(part_sorted)
+    new = np.ones(n, bool)
+    new[1:] = part_sorted[1:] != part_sorted[:-1]
+    return np.maximum.accumulate(np.where(new, np.arange(n), 0))
+
+
+def _scatter(order, values):
+    """``values`` given in ``order``'s row order, back in table row order."""
+    import numpy as np
+
+    out = np.empty_like(values)
+    out[order] = values
+    return out
+
+
+def window_oracle(name: str, tables):
+    """The expected rows of a W3 / W4 / F / U / N text: ({column: values},
+    {column: validity}, the key columns that order the rows), integer
+    columns in the device representation (unscaled decimals, days)."""
+    import numpy as np
+
+    if name == "W3":
+        o = tables["orders"]
+        cust, key = _col(o, "o_custkey"), _col(o, "o_orderkey")
+        date, price = _col(o, "o_orderdate"), _col(o, "o_totalprice")
+        n, pos = len(key), np.arange(len(key))
+        # (custkey; orderdate, orderkey): row_number, lag, the ROWS frames
+        a = np.argsort(_packed([(cust, 21), (date, 14), (key, 27)]))
+        start = _partition_starts(cust[a])
+        pa = price[a]
+        has_prev = pos > start
+        prev = np.where(has_prev, np.roll(pa, 1), 0)
+        csum = np.cumsum(pa)
+        lo = np.maximum(pos - 2, start)
+        sum3 = csum - np.where(lo > 0, csum[np.maximum(lo - 1, 0)], 0)
+        max4 = pa.copy()
+        for back in (1, 2, 3):
+            src = pos - back
+            max4 = np.where(src >= start, np.maximum(max4, pa[np.maximum(src, 0)]), max4)
+        # (custkey; totalprice desc): rank
+        b = np.argsort(_packed([(cust, 21), ((1 << 27) - 1 - price, 27)]), kind="stable")
+        start_b = _partition_starts(cust[b])
+        peer = np.ones(n, bool)
+        peer[1:] = (cust[b][1:] != cust[b][:-1]) | (price[b][1:] != price[b][:-1])
+        rank = np.maximum.accumulate(np.where(peer, pos, 0)) - start_b + 1
+        # (custkey; orderdate): running min with peers, RANGE 30 days back
+        c = np.argsort(_packed([(cust, 21), (date, 14)]), kind="stable")
+        cc, dc, pc = cust[c], date[c], price[c]
+        pid = np.cumsum(np.r_[True, cc[1:] != cc[:-1]]) - 1
+        big = np.int64(1) << 40
+        run_min = np.minimum.accumulate(pc - pid * big) + pid * big
+        peer_end = np.r_[(cc[1:] != cc[:-1]) | (dc[1:] != dc[:-1]), True]
+        last_peer = np.minimum.accumulate(np.where(peer_end, pos, n)[::-1])[::-1]
+        word = (cc << 14) | dc
+        cnt30 = np.searchsorted(word, word, "right") - np.searchsorted(word, word - 30, "left")
+        cols = {
+            "o_orderkey": key, "o_custkey": cust, "o_orderdate": date, "o_totalprice": price,
+            "rn": _scatter(a, pos - start + 1), "rk": _scatter(b, rank),
+            "prev_price": _scatter(a, prev), "sum3": _scatter(a, sum3),
+            "max4": _scatter(a, max4), "run_min": _scatter(c, run_min[last_peer]),
+            "cnt30": _scatter(c, cnt30),
+        }
+        return cols, {"prev_price": _scatter(a, has_prev)}, ("o_orderkey",)
+    if name == "W4":
+        li = tables["lineitem"]
+        okey, line = _col(li, "l_orderkey"), _col(li, "l_linenumber")
+        price, qty, ship = _col(li, "l_extendedprice"), _col(li, "l_quantity"), _col(li, "l_shipdate")
+        pos = np.arange(len(okey))
+        o = np.argsort(_packed([(okey, 27), ((1 << 24) - 1 - price, 24), (line, 3)]))
+        start = _partition_starts(okey[o])
+        has_prev = pos > start
+        qo, so = qty[o], ship[o]
+        cols = {
+            "l_orderkey": okey, "l_linenumber": line, "l_extendedprice": price,
+            "l_quantity": qty, "l_shipdate": ship,
+            "rn": _scatter(o, pos - start + 1),
+            "qty2": _scatter(o, qo + np.where(has_prev, np.roll(qo, 1), 0)),
+            "prev_ship": _scatter(o, np.where(has_prev, np.roll(so, 1), 0)),
+        }
+        return cols, {"prev_ship": _scatter(o, has_prev)}, ("l_orderkey", "l_linenumber")
+    if name in ("F1", "F2"):
+        cu, od = tables["customer"], tables["orders"]
+        seg = cu.string_tables["c_mktsegment"].decode(np.asarray(cu.columns["c_mktsegment"]))
+        building = seg == "BUILDING"
+        ckey, cbal = _col(cu, "c_custkey")[building], _col(cu, "c_acctbal")[building]
+        keep = _col(od, "o_orderdate") < _days("1995-03-15")
+        ocust, oprice = _col(od, "o_custkey")[keep], _col(od, "o_totalprice")[keep]
+        at = np.searchsorted(ckey, ocust)  # custkeys are ascending and unique
+        assert np.all(np.diff(ckey) > 0)
+        found = (at < len(ckey)) & (ckey[np.minimum(at, len(ckey) - 1)] == ocust)
+        if name == "F2":
+            found &= oprice > cbal[np.minimum(at, len(ckey) - 1)] * 10
+        cust_matched = np.zeros(len(ckey), bool)
+        cust_matched[at[found]] = True
+        lonely = int((~cust_matched).sum())
+        cols = {
+            "customers": np.array([int(found.sum()) + lonely]),
+            "orders_n": np.array([len(ocust)]),
+            "pairs": np.array([len(ocust) + lonely]),
+            "total": np.array([int(oprice.sum())]),
+        }
+        return cols, {}, ()
+    if name == "U1":
+        cu, su = tables["customer"], tables["supplier"]
+        nk = np.concatenate([_col(cu, "c_nationkey"), _col(su, "s_nationkey")])
+        bal = np.concatenate([_col(cu, "c_acctbal"), _col(su, "s_acctbal")])
+        keys = np.unique(nk)
+        cols = {
+            "nationkey": keys,
+            "n": np.bincount(nk)[keys].astype(np.int64),
+            "total": np.array([int(bal[nk == k].sum()) for k in keys], np.int64),
+        }
+        return cols, {}, ("nationkey",)
+    if name == "N1":
+        su, na = tables["supplier"], tables["nation"]
+        nk, bal = _col(su, "s_nationkey"), _col(su, "s_acctbal")
+        nations = np.sort(_col(na, "n_nationkey"))
+        above = len(nations) - np.searchsorted(nations, nk, "right")
+        cols = {"pairs": np.array([int(above.sum())]), "total": np.array([int((bal * above).sum())])}
+        return cols, {}, ()
+    raise KeyError(name)
+
+
+def window_plan(name: str, builder, tables):
+    """The two window-slice plans built with ``builder`` (either package's
+    PlanBuilder): a MergeExchange of two sorted ``orders`` branches, and the
+    top three orders of every customer by price."""
+    orders = tables["orders"]
+    if name == "merge_exchange":
+        branches = [
+            builder().table_scan(orders).filter(f"o_orderdate {op} date '1995-01-01'")
+            .orderby(["o_totalprice desc"])
+            for op in ("<", ">=")
+        ]
+        return (builder().merge_exchange(branches, ["o_totalprice desc"])
+                .project(["o_orderkey", "o_totalprice"]).build())
+    if name == "topn_row_number":
+        return (builder().table_scan(orders).project(["o_orderkey", "o_custkey", "o_totalprice"])
+                .topn_row_number(["o_custkey"], ["o_totalprice desc"], 3).build())
+    raise KeyError(name)
+
+
+WINDOW_PLAN_COLUMNS = {
+    "merge_exchange": {"orders": ("o_orderkey", "o_orderdate", "o_totalprice")},
+    "topn_row_number": {"orders": ("o_orderkey", "o_custkey", "o_totalprice")},
+}
+
+
+def window_plan_oracle(name: str, tables):
+    """``window_oracle``'s form for the two plans; the merge's rows keep
+    their order (stable merge: ties in the first branch's order, then the
+    second's), so its key tuple is empty and the order is compared too."""
+    import numpy as np
+
+    o = tables["orders"]
+    key, price = _col(o, "o_orderkey"), _col(o, "o_totalprice")
+    if name == "merge_exchange":
+        early = _col(o, "o_orderdate") < _days("1995-01-01")
+        branches = [np.flatnonzero(early), np.flatnonzero(~early)]
+        rows = np.concatenate([b[np.argsort(-price[b], kind="stable")] for b in branches])
+        rows = rows[np.argsort(-price[rows], kind="stable")]
+        return {"o_orderkey": key[rows], "o_totalprice": price[rows]}, {}, ()
+    if name == "topn_row_number":
+        cust = _col(o, "o_custkey")
+        order = np.argsort(_packed([(cust, 21), ((1 << 27) - 1 - price, 27)]), kind="stable")
+        rn = np.arange(len(order)) - _partition_starts(cust[order]) + 1
+        keep = order[rn <= 3]
+        return ({"o_orderkey": key[keep], "o_custkey": cust[keep], "o_totalprice": price[keep],
+                 "row_number": rn[rn <= 3]}, {}, ("o_orderkey",))
+    raise KeyError(name)
+
+
+def _days(text: str) -> int:
+    import numpy as np
+
+    return int((np.datetime64(text) - np.datetime64("1970-01-01")).astype(np.int64))
+
+
+def check_window_rows(result, want, want_valid, keys):
+    """A result Table held against ``window_oracle``'s rows, exactly: the
+    rows ordered by ``keys`` on both sides, every value where valid, every
+    validity."""
+    import numpy as np
+
+    assert result.num_rows == len(next(iter(want.values()))), (result.num_rows,)
+    n = result.num_rows
+
+    def order(cols):
+        if not keys:
+            return np.arange(n)
+        arrays = [np.asarray(cols[k]).astype(np.int64) for k in keys]
+        bits = [max(1, int(a.max(initial=0)).bit_length()) for a in arrays]
+        if all(a.min(initial=0) >= 0 for a in arrays) and sum(bits) <= 63:
+            # one sort of the keys packed into one word
+            return np.argsort(_packed(list(zip(arrays, bits))), kind="stable")
+        return np.lexsort(tuple(reversed(arrays)))
+
+    got_o, want_o = order(result.columns), order(want)
+    for name, values in want.items():
+        got = np.asarray(result.columns[name])[got_o]
+        valid = np.asarray(want_valid.get(name, np.ones(n, bool)))[want_o]
+        got_valid = result.validities.get(name)
+        got_valid = np.ones(n, bool) if got_valid is None else np.asarray(got_valid)[got_o]
+        assert np.array_equal(got_valid, valid), name
+        exp = np.asarray(values)[want_o]
+        assert np.array_equal(got[valid].astype(np.int64), exp[valid].astype(np.int64)), name
 
 
 def say(phase: str, **fields) -> None:
@@ -456,7 +819,8 @@ class TpchTables:
 
         self.sf = sf
         self.columns = {}
-        for cols in QUERY_COLUMNS.values():
+        for cols in (*QUERY_COLUMNS.values(), *WINDOW_COLUMNS.values(),
+                     *WINDOW_PLAN_COLUMNS.values()):
             for name, names in cols.items():
                 self.columns.setdefault(name, set()).update(names)
         self._tables = {}
@@ -728,6 +1092,81 @@ def run_tpch(num: int, tables, tile_rows: int, runs: int, want=None, sql=False):
     return fields, want
 
 
+def run_window_slice(name: str, cache, tile_rows: int, want=None):
+    """One text of ``WINDOW_SQL`` (planned by ``plan_sql``) or one of the two
+    ``window_plan`` plans over the tables of ``cache``, as a caller of
+    ``run_sql`` / ``run_plan`` waits for it: executor construction (which
+    runs the window, union, merge or join build sides) and the run, ending in
+    the result fetch.  The first run is held against the numpy oracle
+    (``window_oracle`` / ``window_plan_oracle``; W1 and W2 against the
+    oracles of Q2 and Q15, or ``want``); ``query_ms`` is the median of the
+    first run and ``WHOLE_RUNS`` - 1 more, for every text, and one more run
+    under ``torch.profiler`` gives the device time (its wall time, profiler
+    included, is printed beside it).  Returns (the line's fields, the oracle
+    frame of W1 / W2 or None)."""
+    import torch
+
+    from velox_tpu_torch.connectors.tpch.queries import QUERY_COLUMNS
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.sql import plan_sql
+
+    is_plan = name in WINDOW_PLAN_COLUMNS
+    columns = (WINDOW_PLAN_COLUMNS[name] if is_plan else
+               QUERY_COLUMNS[WINDOW_QUERY[name]] if name in WINDOW_QUERY else WINDOW_COLUMNS[name])
+    tables = {t: cache.table(t).select(list(c)) for t, c in columns.items()}
+    t0 = time.perf_counter()
+    plan = (window_plan(name, PlanBuilder, tables) if is_plan
+            else plan_sql(WINDOW_SQL[name], tables))
+    plan_s = time.perf_counter() - t0
+
+    def once():
+        ex = LocalExecutor(plan, tile_rows=tile_rows, device=DEVICE)
+        return ex, ex.run()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex, result = once()
+    walls = [(time.perf_counter() - t0) * 1e3]
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    if name in WINDOW_QUERY:
+        _, want = check_frame(WINDOW_QUERY[name], result, tables, want=want, sql=True)
+    elif is_plan:
+        check_window_rows(result, *window_plan_oracle(name, tables))
+    else:
+        check_window_rows(result, *window_oracle(name, tables))
+    oracle_s = time.perf_counter() - t0
+    fields = dict(
+        name=name, sf=cache.sf, rows_in={t: v.num_rows for t, v in tables.items()},
+        result_rows=result.num_rows, plan_s=plan_s, build_s=ex.build_seconds,
+        kind=ex.kind, window_passes=len(ex.window_chunks),
+        window_largest_pass_rows=max((r for _, r in ex.window_chunks), default=0),
+        window_largest_pass_capacity=max((c for c, _ in ex.window_chunks), default=0),
+        **expansion_report(ex), device_peak_bytes_first_run=peak, oracle_s=oracle_s,
+        correct=True,
+    )
+    del ex, result
+    torch.cuda.empty_cache()
+    for _ in range(WHOLE_RUNS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        once()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    busy, top = device_busy_ms(once, top=4)
+    profiled_ms = (time.perf_counter() - t0) * 1e3
+    query_ms = statistics.median(walls)
+    fields.update(
+        query_ms=query_ms, query_runs_ms=walls, profiled_run_ms=profiled_ms,
+        query_device_busy_ms=busy,
+        query_host_share=None if busy is None else max(0.0, 1.0 - busy / query_ms),
+        query_top_kernels=top,
+    )
+    return fields, want
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=10.0)
@@ -902,6 +1341,23 @@ def main() -> int:
             say("tpch_sql", sf=args.sf, **fields)
         summary[f"sql q{num}"] = [None, None, fields["build_s"],
                                   fields["query_ms"], fields["query_device_busy_ms"]]
+
+    # ---- the window / set-operation slice: windows (W1-W4), FULL joins (F1,
+    # F2), UNION ALL (U1), a nested-loop join (N1), MergeExchange and
+    # topn_row_number (the plans).  They launch none of the hand-written
+    # kernels, and must not.
+    before = dict((name, w.launches) for name, w in wrappers.items())
+    names = [*WINDOW_SQL, *WINDOW_PLAN_COLUMNS]
+    for name in names:
+        if name in WINDOW_AT_SF1 and args.sf > 1:
+            fields, _ = run_window_slice(name, small, WINDOW_AT_SF1[name])
+        else:
+            fields, _ = run_window_slice(name, cache, args.tile_rows,
+                                         want=oracles.get(WINDOW_QUERY.get(name)))
+        say("tpch_window", **fields)
+        summary[f"window {name}"] = [None, None, fields["build_s"], fields["query_ms"],
+                                     fields["query_device_busy_ms"]]
+    assert before == dict((name, w.launches) for name, w in wrappers.items())
     say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

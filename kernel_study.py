@@ -26,7 +26,11 @@ prints, one JSON line each:
               or before this one"), timed as ``torch.cummax`` and as the
               engine's ``ops/segmented.py last_flagged`` (a prefix count of
               the flags, a scatter by that count and a gather back); equal
-              results asserted.
+              results asserted;
+``running_min_max``  the window's running min / max over 2^24 made-up
+              rows in segments, as the engine computes it (a sparse table and
+              one range query a row) and as a ``torch.cummax`` of a packed
+              (segment, value rank) word; equal results asserted.
 
 The wrappers take no tuning argument: a variant is run by planning every
 launch inside ``planned_with(...)`` with that override of
@@ -189,6 +193,50 @@ def last_flagged_row(runs: int, n: int = 1 << 24):
     )
 
 
+def running_min_max(runs: int, n: int = 1 << 24):
+    """ms of the window's running min / max (``segmented_scan(..., "min" /
+    "max")``: the extreme over [segment start, row]) over ``n`` int64 rows,
+    1 in 16 starting a segment (about the shape of a window over ``orders``
+    by customer), two ways on one input: the engine's sparse table with one
+    range query a row (``ops/segmented.py sparse_table`` /
+    ``sparse_table_query``), and the running maximum of a packed (segment,
+    value rank) word by ``torch.cummax`` (what ``segmented_scan`` ran until
+    the window slice); equal results asserted."""
+    import torch
+
+    from velox_tpu_torch.ops.segmented import segmented_scan
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(16)
+    values = torch.randint(-(1 << 40), 1 << 40, (n,), generator=gen, device=DEVICE)
+    boundary = torch.randint(0, 16, (n,), generator=gen, device=DEVICE) == 0
+    iota = torch.arange(n, dtype=torch.int64, device=DEVICE)
+
+    def by_cummax(op):
+        seg = torch.cumsum(boundary, 0)
+        order = torch.argsort(values, stable=True)
+        rank = torch.empty_like(order)
+        rank[order] = iota
+        if op == "min":
+            rank = (n - 1) - rank
+        bits = max(1, int(n - 1).bit_length())
+        best = torch.cummax((seg << bits) | rank, 0).values & ((1 << bits) - 1)
+        if op == "min":
+            best = (n - 1) - best
+        return values.index_select(0, order.index_select(0, best))
+
+    out = dict(rows=n, segments=int(boundary.sum()),
+               # values and flags read, values written
+               bound_ms=(8 * n + n + 8 * n) / PEAK_BYTES_PER_S * 1e3)
+    for op in ("min", "max"):
+        assert torch.equal(by_cummax(op), segmented_scan(values, boundary, op)), op
+        out[op] = dict(
+            sparse_table_ms=median_ms(lambda: segmented_scan(values, boundary, op), runs),
+            cummax_ms=median_ms(lambda: by_cummax(op), runs),
+        )
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=10.0)
@@ -223,6 +271,7 @@ def main() -> int:
         **variant_sweep(cols, gid_live, plans, groups, wide, gids, mask, args.runs))
     say("piece_cost_split", **piece_cost_split(cols, gid_live, plans, groups, args.runs))
     say("last_flagged_row", card=smi, **last_flagged_row(args.runs))
+    say("running_min_max", card=smi, **running_min_max(args.runs))
     return 0
 
 

@@ -6,6 +6,7 @@ Mirrors ``tests/test_expansion_join.py``.  Every column agrees exactly (the
 joins move values, they compute none)."""
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -187,9 +188,36 @@ def test_segpool_against_reference(seed):
 
 
 def test_full_join_raises_by_name():
-    (_, port_l), (_, port_r) = _small()
-    full = PortBuilder().table_scan(port_l).hash_join(
-        PortBuilder().table_scan(port_r), ["k"], ["rk"], output=["k", "ry"], join_type="full"
-    ).build()
-    with pytest.raises(NotImplementedError, match="FULL"):
-        PortExecutor(full, device="cpu")
+    """FULL joins no longer raise: an expansion join whose unmatched build
+    rows enter the pipeline after the last tile, the same rows as the JAX
+    package's (build keys 1 and 3 repeat, 5 matches nothing, probe keys 2 and
+    4 match nothing).  With an ORDER BY above it the tail tile's NULL probe
+    columns meet tiles that carry them without a validity: the port aligns
+    the layouts (the JAX package's rows come out misaligned there, so the
+    order is held against the expected rows)."""
+    (ref_l, port_l), (ref_r, port_r) = _small()
+
+    def plan(builder, left, right):
+        return builder().table_scan(left).hash_join(
+            builder().table_scan(right), ["k"], ["rk"], output=["k", "lx", "rk", "ry"],
+            join_type="full",
+        )
+
+    def rows(table):
+        df = table.to_pandas()
+        return sorted(tuple(-1 if pd.isna(v) else int(v) for v in r) for r in df.itertuples(index=False))
+
+    port = PortExecutor(plan(PortBuilder, port_l, port_r).build(), tile_rows=1024, device="cpu")
+    assert [s[0] for s in port._all_steps] == ["xjoin"]
+    got = rows(port.run())
+    assert got == rows(RefExecutor(plan(RefBuilder, ref_l, ref_r).build(), tile_rows=1024).run())
+    assert len(got) == 3 + 1 + 2 + 2  # k=1 x3, k=3, k=2 and 4 alone, rk=5 x2
+    ordered = PortExecutor(
+        plan(PortBuilder, port_l, port_r).orderby(["k nulls first", "rk nulls first", "ry"]).build(),
+        tile_rows=1024, device="cpu",
+    ).run().to_pandas()
+    norm = lambda col: [None if pd.isna(v) else int(v) for v in col]  # noqa: E731
+    assert norm(ordered["k"]) == [None, None, 1, 1, 1, 2, 3, 4]
+    assert norm(ordered["rk"]) == [5, 5, 1, 1, 1, None, 3, None]
+    assert norm(ordered["ry"]) == [500, 501, 100, 101, 102, None, 300, None]
+    assert norm(ordered["lx"]) == [None, None, 10, 10, 10, 20, 30, 40]

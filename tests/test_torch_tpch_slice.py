@@ -178,7 +178,7 @@ def test_unported_plans_raise_by_name():
     from velox_tpu_torch.plan import PlanBuilder
 
     scan = lambda: PlanBuilder().table_scan(tables["lineitem"])  # noqa: E731
-    for method in ("nested_loop_join", "union_all", "window", "unnest", "table_write"):
+    for method in ("unnest", "group_id", "table_write"):
         with pytest.raises(NotImplementedError, match=method):
             getattr(scan(), method)(None)
     # a join whose build side repeats its key runs as an expansion join:
@@ -193,11 +193,18 @@ def test_unported_plans_raise_by_name():
     build_tax = cols["l_tax"][cols["l_quantity"] == 200]
     counts = np.bincount(build_tax, minlength=16)
     assert ex.run().num_rows == int(counts[probe_tax].sum()) > 0
-    full = scan().hash_join(
-        scan(), ["l_tax"], ["l_tax"], output=["l_tax"], join_type="full"
+    # a FULL join over the same sides: every key of either side matches one
+    # of the other, so it has the inner join's rows
+    full = PlanBuilder().table_scan(
+        tables["lineitem"], filter="l_quantity = 1 and l_discount = 0"
+    ).hash_join(
+        PlanBuilder().table_scan(tables["lineitem"], filter="l_quantity = 1 and l_discount = 0"),
+        ["l_tax"], ["l_tax"], output=["l_tax"], join_type="full",
     ).build()
-    with pytest.raises(NotImplementedError, match="FULL"):
-        PortExecutor(full, device="cpu")
+    probe_counts = np.bincount(probe_tax, minlength=16)
+    assert PortExecutor(full, tile_rows=1 << 14, device="cpu").run().num_rows == int(
+        (probe_counts ** 2).sum()
+    )
     # what the earlier slices refused now runs: a collect pipeline and a
     # sort-mode grouping
     collect = PortExecutor(scan().limit(3).build(), tile_rows=1 << 14, device="cpu")

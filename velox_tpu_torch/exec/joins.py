@@ -27,24 +27,28 @@ values outside any range cannot match and map to a negative sentinel.
 Every sort here is stable (``torch.sort(stable=True)``): build rows must
 precede equal probe keys, and ties keep their input order.
 
-Scope: equi-joins, types INNER, LEFT, LEFT_SEMI and ANTI.  A UNIQUE build
+Scope: equi-joins, types INNER, LEFT, FULL, LEFT_SEMI and ANTI (RIGHT and
+RIGHT_SEMI flip to LEFT / LEFT_SEMI in the executor).  A UNIQUE build
 side (primary-key joins) probes in one fused pass.  A build side with
 DUPLICATE keys becomes an **expansion join**: the build keeps per-key runs
 (start, count) in sorted order, each probe row resolves to a span over the
 build array (``probe_spans``), and ``expand`` writes one output row per
 (probe row, matching build row) pair into a power-of-two output bucket that
-the executor sizes by one scalar read a tile (ops/segpool.py).  LEFT_SEMI and
-ANTI deduplicate the build keys, so any build side works there.  Non-equi
-filters: on INNER they become a filter above the join, on LEFT they null the
-build side of failing matches (the executor's ``left_join_filter`` step; on
-an N:M LEFT join through ``rewrite_left_filter_nm``), on LEFT_SEMI / ANTI
-they lower through ``rewrite_filtered_existence_joins``.
+the executor sizes by one scalar read a tile (ops/segpool.py).  A FULL join
+is always an expansion join built on the host: its build keeps the null-key
+rows (under a sentinel key that equals nothing) and the right key columns;
+each tile's spans also flag the build rows it matched (``probe_spans``), and
+after the last tile ``full_tail`` emits the build rows no tile matched, with
+the probe side NULL.  LEFT_SEMI and ANTI deduplicate the build keys, so any
+build side works there.  Non-equi filters: on INNER they become a filter
+above the join, on LEFT they null the build side of failing matches (the
+executor's ``left_join_filter`` step; on an N:M LEFT join through
+``rewrite_left_filter_nm``); on LEFT_SEMI / ANTI, null-aware ANTI and FULL
+they lower through plan rewrites (``rewrite_filtered_existence_joins``,
+``rewrite_null_aware_anti_filter``, ``rewrite_full_filter``).
 
-Not ported yet, each raising ``NotImplementedError`` by name: FULL joins and
-``full_tail``, filtered null-aware anti joins
-(``rewrite_null_aware_anti_filter``, which needs UNION ALL), filtered FULL
-joins (``rewrite_full_filter``), and ``probe_split_host`` (a split dispatch
-that exists for the JAX package's compiler).
+Not ported: ``probe_split_host`` (a split dispatch that exists for the JAX
+package's compiler) raises by name.
 """
 
 from __future__ import annotations
@@ -77,12 +81,6 @@ def _not_ported(name: str, what: str):
 
     raiser.__name__ = name
     return raiser
-
-
-rewrite_null_aware_anti_filter = _not_ported(
-    "rewrite_null_aware_anti_filter", "filtered null-aware anti joins"
-)
-rewrite_full_filter = _not_ported("rewrite_full_filter", "filtered FULL joins")
 
 
 @dataclasses.dataclass
@@ -304,8 +302,6 @@ class HashJoinExec:
     bp_packed: Optional[torch.Tensor] = None
     bp_fields: Optional[Tuple] = None
 
-    init_matched = _not_ported("HashJoinExec.init_matched", "FULL join")
-    full_tail = _not_ported("HashJoinExec.full_tail", "FULL join")
     probe_split_host = _not_ported("HashJoinExec.probe_split_host", "split dispatch")
 
     @property
@@ -352,12 +348,8 @@ class HashJoinExec:
 
     @staticmethod
     def _check_node(node: HashJoinNode) -> None:
-        if node.join_type == JoinType.FULL:
-            raise NotImplementedError(
-                "FULL joins (expansion machinery + full_tail) are not ported yet"
-            )
         if node.join_type not in (
-            JoinType.INNER, JoinType.LEFT, JoinType.LEFT_SEMI, JoinType.ANTI
+            JoinType.INNER, JoinType.LEFT, JoinType.FULL, JoinType.LEFT_SEMI, JoinType.ANTI
         ):
             raise NotImplementedError(f"join type {node.join_type} is not ported yet")
         if node.filter is not None:
@@ -383,27 +375,36 @@ class HashJoinExec:
 
         # Build rows with a NULL key can never match (standard, non-null-aware
         # join semantics; reference HashBuild drops them too for inner/semi
-        # joins).
+        # joins).  For FULL they must survive as rows that match nothing, so
+        # they keep a sentinel key that sorts last and equals nothing.
         keep = None
         for k in key_names:
             validity = build_result.validities.get(k)
             if validity is not None and not validity.all():
                 keep = validity if keep is None else (keep & validity)
-        if keep is not None:
+        full = node.join_type == JoinType.FULL
+        if keep is not None and not full:
             key_arrays = [a[keep] for a in key_arrays]
 
         if len(key_names) == 1:
             normalizer = None
             packed_hi, packed = None, key_arrays[0].astype(np.int64)
         else:
-            normalizer = _NormalizedKey.fit(key_arrays)
+            fit_arrays = [a[keep] for a in key_arrays] if keep is not None else key_arrays
+            normalizer = _NormalizedKey.fit(fit_arrays)
             packed_hi, packed = normalizer.pack_host_limbs(key_arrays)
+        if keep is not None and full:
+            packed = packed.copy()
+            packed[~keep] = _KEY_SENTINEL
+            if packed_hi is not None:
+                packed_hi = packed_hi.copy()
+                packed_hi[~keep] = _KEY_SENTINEL
 
         if packed_hi is None:
             order = np.argsort(packed, kind="stable")
         else:
             order = np.lexsort((packed, packed_hi))
-        row_order = order if keep is None else np.flatnonzero(keep)[order]
+        row_order = order if keep is None or full else np.flatnonzero(keep)[order]
         keys_sorted = packed[order]
         keys_hi_sorted = None if packed_hi is None else packed_hi[order]
 
@@ -426,12 +427,13 @@ class HashJoinExec:
             if keys_hi_sorted is not None:
                 keys_hi_sorted = keys_hi_sorted[first]
             row_order = row_order[first]
-        elif eq.any():
-            # duplicate keys: keep per-key runs (the expansion join)
+        elif full or eq.any():
+            # duplicate keys, or FULL (which always needs the expansion
+            # machinery for its unmatched-build tail): keep per-key runs
             if keys_hi_sorted is not None:
                 raise JoinBuildError(
-                    "N:M joins with composite keys wider than 62 bits are not "
-                    "supported; pre-aggregate the build side"
+                    "N:M / FULL joins with composite keys wider than 62 bits are "
+                    "not supported; pre-aggregate the build side"
                 )
             expansion = True
             n = len(keys_sorted)
@@ -445,7 +447,9 @@ class HashJoinExec:
         bounds_map: Dict[str, Tuple[int, int]] = {}
         right_schema = node.right.output_schema
         for name in node.output_columns:
-            if name in right_schema and name not in key_names:
+            # FULL keeps the right KEY columns too: the unmatched-build tail
+            # emits the real key values, not probe-side copies
+            if name in right_schema and (name not in key_names or full):
                 arr = np.asarray(build_result.columns[name])[row_order]
                 validity = build_result.validities.get(name)
                 if len(arr) and (
@@ -460,9 +464,11 @@ class HashJoinExec:
                     else torch.as_tensor(validity[row_order].copy(), device=device)
                 )
                 cols[name] = (torch.as_tensor(arr.copy(), device=device), v)
-        n_valid_keys = len(keys_sorted)
+        # (min, max) over the valid keys: sorted ascending, with the
+        # sentinels (FULL null-key rows) last
+        n_valid_keys = len(keys_sorted) - int(np.sum(keys_sorted == _KEY_SENTINEL))
         key_range = (
-            (int(keys_sorted[0]), int(keys_sorted[-1]))
+            (int(keys_sorted[0]), int(keys_sorted[n_valid_keys - 1]))
             if n_valid_keys and keys_hi_sorted is None
             else None
         )
@@ -771,13 +777,21 @@ class HashJoinExec:
     def probe_spans(self, batch: Batch):
         """Phase 1 of an expansion join: per probe row (in the batch's order)
         the matching build run.  Returns (sizes, starts, hit, total) with
-        ``total`` the 0-d count of output rows."""
+        ``total`` the 0-d count of output rows; a FULL join adds the [B]
+        flags of the build rows this batch matched."""
         assert self.expansion
         cap = batch.capacity
         B = self.build_size
         dev = batch.device
+        jt = self.node.join_type
         (_, probe_keys), _, key_ok, _ = self._probe_keys(batch)
         live = batch.active_mask()
+        if B == 0:
+            # only a FULL join keeps an empty build side on this path
+            none = torch.zeros((cap,), dtype=torch.int64, device=dev)
+            sizes = live.to(torch.int64)
+            return (sizes, none, torch.zeros((cap,), dtype=torch.bool, device=dev),
+                    sizes.sum(), torch.zeros((0,), dtype=torch.bool, device=dev))
         all_keys = torch.cat([self.build_keys, probe_keys])
         is_probe = torch.cat(
             [torch.zeros((B,), dtype=torch.int64, device=dev),
@@ -811,12 +825,23 @@ class HashJoinExec:
         hit = hit_p & key_ok & live
         starts = _take(self.run_start, cand_p)
         counts = _take(self.run_count, cand_p)
-        if self.node.join_type == JoinType.LEFT:
+        if jt in (JoinType.LEFT, JoinType.FULL):
             sizes = torch.where(live, torch.where(hit, counts, torch.ones_like(counts)),
                                 torch.zeros_like(counts))
         else:  # INNER
             sizes = torch.where(hit, counts, torch.zeros_like(counts))
-        return sizes, starts, hit, sizes.sum()
+        if jt != JoinType.FULL:
+            return sizes, starts, hit, sizes.sum()
+        # FULL: a build row is matched when a hit probe row owns its key's
+        # run, i.e. the run's start; one scatter marks the starts of the
+        # hit runs and a gather by run start spreads the mark over each run.
+        # The JAX package merges the keys once more, probes before equal
+        # build keys, and routes the flags back by a sort; the flags are
+        # the same.  Null-key build rows (the sentinel) match nothing.
+        marks = torch.zeros((B + 1,), dtype=torch.bool, device=dev)
+        marks.scatter_(0, torch.where(hit, starts, torch.full_like(starts, B)), hit)
+        matched = marks[:B].index_select(0, self.run_start) & (self.build_keys != _KEY_SENTINEL)
+        return sizes, starts, hit, sizes.sum(), matched
 
     def expand(self, batch: Batch, spans, out_cap: int) -> Batch:
         """Phase 2: materialize the joined rows into an [out_cap] batch (one
@@ -843,17 +868,25 @@ class HashJoinExec:
             if name in left_schema:
                 out_cols.append(batch.column(name).flatten(cap).gather(rowid))
             elif name in right_key_to_left:
+                # a right key equals the probe's key on matched rows
                 src = batch.column(right_key_to_left[name])
                 values, _ = src.decode(cap)
-                gv = row_hit if jt == JoinType.LEFT else None
+                gv = row_hit if jt in (JoinType.LEFT, JoinType.FULL) else None
                 out_cols.append(
                     Column.flat(_take(values, rowid).to(dtype.device_dtype), dtype, gv, src.strings)
                 )
+            elif self.build_size == 0:
+                out_cols.append(Column.flat(
+                    torch.zeros((out_cap,), dtype=dtype.device_dtype, device=batch.device),
+                    dtype,
+                    torch.zeros((out_cap,), dtype=torch.bool, device=batch.device),
+                    self.build_tables.get(name),
+                ))
             else:
                 values, validity = self.build_cols[name]
                 g = _take(values, build_pos)
                 gv = None if validity is None else _take(validity, build_pos)
-                if jt == JoinType.LEFT:
+                if jt in (JoinType.LEFT, JoinType.FULL):
                     gv = row_hit if gv is None else (gv & row_hit)
                 out_cols.append(Column.flat(g, dtype, gv, self.build_tables.get(name)))
         return Batch(
@@ -863,6 +896,43 @@ class HashJoinExec:
             node.output_schema,
             out_cap,
         )
+
+    # ---- FULL join: the unmatched-build tail --------------------------------
+    def init_matched(self) -> torch.Tensor:
+        """[B] matched flags before the first tile: none."""
+        return torch.zeros((self.build_size,), dtype=torch.bool, device=self.device)
+
+    def full_tail(self, matched: torch.Tensor) -> Batch:
+        """The FULL join's last batch: the build rows no tile matched (the
+        null-key rows among them), compacted to the front, the probe side
+        NULL.  Its capacity is the build size (at least one row)."""
+        from ..ops.compact import compaction_indices
+
+        node = self.node
+        B = self.build_size
+        dev = self.device
+        cap = max(B, 1)
+        unmatched = ~matched
+        if self.build_valid is not None:
+            unmatched = unmatched & self.build_valid
+        perm, count = compaction_indices(unmatched)
+        left_schema = node.left.output_schema
+        out_cols: List[Column] = []
+        for name, dtype in zip(node.output_schema.names, node.output_schema.types):
+            if name in self.build_cols and B > 0:
+                values, validity = self.build_cols[name]
+                g = _take(values, perm)
+                gv = None if validity is None else _take(validity, perm)
+                out_cols.append(Column.flat(g, dtype, gv, self.build_tables.get(name)))
+            elif name in self.build_cols or name in left_schema:
+                out_cols.append(Column.flat(
+                    torch.zeros((cap,), dtype=dtype.device_dtype, device=dev),
+                    dtype,
+                    torch.zeros((cap,), dtype=torch.bool, device=dev),
+                ))
+            else:
+                raise KeyError(f"FULL join: no build column for {name!r}")
+        return Batch(tuple(out_cols), count, None, node.output_schema, cap)
 
     # ---- fused probe ----------------------------------------------------
     def _probe_fused(self, batch: Batch) -> Optional[Batch]:
@@ -1192,8 +1262,9 @@ def rewrite_filtered_existence_joins(node):
     The probe subtree executes twice (once inside ``matched``); uids derive
     from global row offsets, so both executions agree.  RIGHT_SEMI flips to
     LEFT_SEMI first (the same lowering _linearize applies).  A filtered FULL
-    or null-aware ANTI join reaches ``rewrite_full_filter`` /
-    ``rewrite_null_aware_anti_filter``, which are not ported yet.
+    or null-aware ANTI join lowers through ``rewrite_full_filter`` /
+    ``rewrite_null_aware_anti_filter``.  The rewrite walks every input of a
+    node (UNION ALL and MergeExchange inputs too).
     """
     from ..plan.nodes import (
         AggregationNode,
@@ -1207,6 +1278,9 @@ def rewrite_filtered_existence_joins(node):
         child = getattr(node, attr, None)
         if isinstance(child, PlanNode):
             kids[attr] = rewrite_filtered_existence_joins(child)
+    inputs = getattr(node, "inputs", None)
+    if inputs and all(isinstance(i, PlanNode) for i in inputs):
+        kids["inputs"] = tuple(rewrite_filtered_existence_joins(i) for i in inputs)
     if kids:
         node = dataclasses.replace(node, **kids)
     if not isinstance(node, HashJoinNode) or node.filter is None:
@@ -1292,3 +1366,125 @@ def rewrite_left_filter_nm(node: HashJoinNode) -> HashJoinNode:
         uid, inner, JoinType.LEFT, (uid_name,), (uid_name,),
         tuple(node.output_columns), id=node.id + "_ljf",
     )
+
+
+def rewrite_null_aware_anti_filter(node: HashJoinNode) -> "PlanNode":
+    """Null-aware ANTI join (NOT IN) carrying a non-equi filter.
+
+    Reference semantics (velox/exec/HashProbe.cpp null-aware anti-join filter
+    handling): a probe row is emitted iff NO build row b satisfies
+    ``(keys equal OR probe key IS NULL OR build key IS NULL) AND filter(p,b)``
+    — a NULL on either side makes the key comparison UNKNOWN, which NOT IN
+    treats as a possible match, but the filter can still disqualify it.
+    Lowered to supported primitives:
+
+        uid = AssignUniqueId(probe)
+        m1  = distinct uid of (uid INNER JOIN build ON keys, filter)
+        m2  = distinct uid of (uid CROSS build[key IS NULL], filter)
+        m3  = distinct uid of (uid[key IS NULL] CROSS build, filter)
+        out = uid ANTI JOIN (m1 UNION ALL m2 UNION ALL m3) ON uid
+
+    The cross joins only touch the NULL-key subsets (m2's build side, m3's
+    probe side), so they stay small in practice.
+    """
+    from ..dtypes import BIGINT, BOOLEAN
+    from ..expr.ir import Call, Constant, FieldAccess, Special, SpecialForm
+    from ..plan.nodes import (
+        AggregationNode,
+        AggregationStep,
+        AssignUniqueIdNode,
+        FilterNode,
+        ProjectNode,
+        UnionAllNode,
+    )
+
+    probe, build = node.left, node.right
+    ls, rs = probe.output_schema, build.output_schema
+    uid_name = f"__naf_{node.id}"
+    uid = AssignUniqueIdNode(probe, uid_name)
+    refs = _filter_refs(node.filter)
+    probe_cols = [uid_name] + [c for c in refs if c in ls or c in node.left_keys]
+    build_cols = [c for c in rs.names if c in refs or c in node.right_keys]
+    inner_out = tuple(dict.fromkeys(probe_cols + build_cols))
+
+    def distinct_uids(join):
+        return AggregationNode(join, AggregationStep.SINGLE, (uid_name,), (), ())
+
+    def any_null(schema, keys):
+        tests = [
+            Call(BOOLEAN, "is_null", (FieldAccess(schema.type_of(k), k),))
+            for k in keys
+        ]
+        return tests[0] if len(tests) == 1 else Special(BOOLEAN, SpecialForm.OR, tuple(tests))
+
+    def with_const_key(src, cols, key_name):
+        names, exprs = [], []
+        for c in cols:
+            names.append(c)
+            exprs.append(FieldAccess(src.output_schema.type_of(c), c))
+        names.append(key_name)
+        exprs.append(Constant(BIGINT, 1))
+        return ProjectNode(src, tuple(names), tuple(exprs))
+
+    def cross_matches(left_src, right_src):
+        xl, xr = f"__naf_xl_{node.id}", f"__naf_xr_{node.id}"
+        cl = with_const_key(left_src, probe_cols, xl)
+        cr = with_const_key(right_src, build_cols, xr)
+        join = HashJoinNode(cl, cr, JoinType.INNER, (xl,), (xr,), inner_out, node.filter)
+        return distinct_uids(join)
+
+    m1 = distinct_uids(
+        HashJoinNode(
+            uid, build, JoinType.INNER, node.left_keys, node.right_keys,
+            inner_out, node.filter,
+        )
+    )
+    m2 = cross_matches(uid, FilterNode(build, any_null(rs, node.right_keys)))
+    m3 = cross_matches(FilterNode(uid, any_null(ls, node.left_keys)), build)
+    matched = UnionAllNode((m1, m2, m3))
+    return HashJoinNode(
+        uid, matched, JoinType.ANTI, (uid_name,), (uid_name,),
+        tuple(node.output_columns), id=node.id,
+    )
+
+
+def rewrite_full_filter(node: HashJoinNode) -> "PlanNode":
+    """FULL join + non-equi filter: matched pairs failing the filter count as
+    unmatched on BOTH sides (reference: HashProbe filter + the FULL epilogue
+    re-checking match flags).  Lowered to supported primitives:
+
+        uidl  = AssignUniqueId(probe);  uidr = AssignUniqueId(build)
+        inner = uidl INNER JOIN uidr ON keys, filter f
+        left  = uidl LEFT JOIN inner ON uidl       (probe side + matches)
+        ub    = uidr ANTI inner ON uidr            (builds with no pass)
+        out   = left UNION ALL project(ub, probe cols as typed NULLs)
+    """
+    from ..expr.ir import Constant, FieldAccess
+    from ..plan.nodes import AssignUniqueIdNode, ProjectNode, UnionAllNode
+
+    ul, ur = f"__ffl_{node.id}", f"__ffr_{node.id}"
+    uidl = AssignUniqueIdNode(node.left, ul)
+    uidr = AssignUniqueIdNode(node.right, ur)
+    ls, rs = node.left.output_schema, node.right.output_schema
+    refs = _filter_refs(node.filter)
+    inner_out = [ul, ur] + [
+        c
+        for c in dict.fromkeys(list(node.output_columns) + sorted(refs))
+        if c in rs or (c in refs and c in ls)
+    ]
+    inner = HashJoinNode(
+        uidl, uidr, JoinType.INNER, node.left_keys, node.right_keys,
+        tuple(inner_out), node.filter,
+    )
+    left = HashJoinNode(uidl, inner, JoinType.LEFT, (ul,), (ul,), tuple(node.output_columns))
+    build_cols = [c for c in node.output_columns if c in rs]
+    unmatched = HashJoinNode(uidr, inner, JoinType.ANTI, (ur,), (ur,), tuple(build_cols))
+    names, exprs = [], []
+    for c in node.output_columns:
+        names.append(c)
+        if c in rs:
+            exprs.append(FieldAccess(rs.type_of(c), c))
+        else:
+            exprs.append(Constant(ls.type_of(c), None))
+    ub = ProjectNode(unmatched, tuple(names), tuple(exprs))
+    return UnionAllNode((left, ub), id=node.id + "_ff")

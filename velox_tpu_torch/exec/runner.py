@@ -17,11 +17,24 @@ source run as sub-executors when the executor is constructed.
 
 An expansion (N:M) join splits the pipeline into phases: the steps up to
 it, its spans (one scalar read a tile sizes the power-of-two output bucket),
-its expansion, then the next phase (``_expand_tile``).
+its expansion, then the next phase (``_expand_tile``).  A FULL join is always
+an expansion join: every tile ORs its build rows' matched flags, and after
+the last tile the unmatched build rows enter the pipeline as one more tile
+just above the join (``full_tail``).
 
-Not ported yet, each raising ``NotImplementedError`` by name: FULL joins,
-window / union / merge-exchange sources, the unnest and group-id steps, the
-collect aggregates, spilling and the Grace join fallback.  The JAX package's
+Window, UNION ALL and MergeExchange sources are barriers: their inputs run
+into host Tables first, before anything else of the executor, and the plan
+above is rebuilt over the result (so string dictionaries, value bounds and
+nullability are those of the rows the pipeline sees).  A window runs one
+device pass over a tile of whole partitions (``_materialize_window``); UNION
+ALL concatenates its inputs by position (``exec/grouped.py concat_tables``);
+MergeExchange concatenates and sorts again on the device.  A collect over
+tiles whose columns differ in carrying a validity (a FULL join's tail tile)
+gives them one layout first (``_align_layouts``).
+
+Not ported yet, each raising ``NotImplementedError`` by name: the unnest and
+group-id steps, the collect aggregates, spilling (of windows, sorts and
+aggregation partials) and the Grace join fallback.  The JAX package's
 split-dispatch programs, ``tjit`` and buffer donation exist for its compiler
 and have no counterpart here.
 
@@ -53,12 +66,14 @@ from ..plan.nodes import (
     HashJoinNode,
     JoinType,
     LimitNode,
+    MergeExchangeNode,
     OrderByNode,
     PlanNode,
     ProjectNode,
     SortKey,
     TableScanNode,
     TopNNode,
+    UnionAllNode,
     ValuesNode,
 )
 from ..ops.compact import compact
@@ -73,6 +88,7 @@ from .aggregates import (
     narrow_int_sum,
 )
 from .grouping import MAX_ARRAY_GROUPS, ArrayGrouping, KeyInfo, SortGrouping, key_info
+from .window import WindowNode
 
 
 class QueryError(RuntimeError):
@@ -103,6 +119,12 @@ def resolve_column_strings(node: PlanNode, name: str) -> Optional[StringTable]:
             if hit is not None:
                 return resolve_column_strings(node.source, hit)
         return None
+    if isinstance(node, (UnionAllNode, MergeExchangeNode)):
+        # the inputs' rows are concatenated into one merged dictionary: only
+        # a dictionary every input shares keeps its codes there
+        i = list(node.output_schema.names).index(name)
+        tabs = [resolve_column_strings(s, s.output_schema.names[i]) for s in node.inputs]
+        return tabs[0] if all(t is tabs[0] for t in tabs) else None
     if node.sources:
         for s in node.sources:
             if name in s.output_schema:
@@ -336,6 +358,14 @@ def resolve_column_nullable(node: PlanNode, name: str) -> bool:
         if name in node.grouping_keys:
             return resolve_column_nullable(node.sources[0], name)
         return True  # aggregate results (e.g. sum over zero rows) can be null
+    if isinstance(node, (UnionAllNode, MergeExchangeNode)):
+        # inputs align by position: the column may be NULL where any input's
+        # column at that position may be (the JAX package asks the first
+        # input only, and so misses NULLs that a later input brings)
+        i = list(node.output_schema.names).index(name)
+        return any(
+            resolve_column_nullable(s, s.output_schema.names[i]) for s in node.inputs
+        )
     if node.sources:
         for s in node.sources:
             if name in s.output_schema:
@@ -1285,13 +1315,26 @@ class LocalExecutor:
             )
         self.pool = pool
         root = rewrite_filtered_existence_joins(root)
-        self.root = root
         self.tile_rows = tile_rows
         self.build_seconds = 0.0
         # (output bucket, rows) of every expansion the build sides and
         # barriers ran while this executor was constructed
         self.build_expansions: List[Tuple[int, int]] = []
+        # (tile capacity, rows) of every window pass those ran
+        self.window_chunks: List[Tuple[int, int]] = []
         lin = _linearize(root)
+        if isinstance(lin.source, (WindowNode, UnionAllNode, MergeExchangeNode)):
+            # a window or set-operation source runs first, and the plan above
+            # it is rebuilt over its rows, so that what the steps above
+            # resolve by provenance (string dictionaries, value bounds,
+            # nullability) describes the rows they will see: UNION ALL merges
+            # the inputs' dictionaries, a window adds columns
+            t0 = time.perf_counter()
+            values = ValuesNode(self._materialize_source(lin.source), id=lin.source.id)
+            self.build_seconds += time.perf_counter() - t0
+            root = _replace_plan_node(root, lin.source, values)
+            lin = _linearize(root)
+        self.root = root
 
         resolved: List[Tuple] = []
         for step in lin.steps:
@@ -1301,7 +1344,9 @@ class LocalExecutor:
             t0 = time.perf_counter()
             node = step[1]
             sub = self._sub_executor(node.right)
-            built = sub.run_device()
+            # a FULL join's build is the host's: it keeps the null-key rows
+            # and the right key columns for the unmatched-build tail
+            built = None if node.join_type == JoinType.FULL else sub.run_device()
             exec_ = None
             if built is not None:
                 # build data stays in device memory end to end
@@ -1311,7 +1356,7 @@ class LocalExecutor:
                     pass  # N:M build: the host path below constructs the per-key runs
             if exec_ is None:
                 exec_ = HashJoinExec.build(node, sub.run(), device=self.device)
-            self.build_expansions += sub.build_expansions + sub.expansions
+            self._absorb(sub)
             self.pool.reserve(exec_.state_bytes())
             self.build_seconds += time.perf_counter() - t0
             resolved.append(("xjoin" if exec_.expansion else "join", exec_))
@@ -1345,15 +1390,13 @@ class LocalExecutor:
         # after another
         self.expansions: List[Tuple[int, int]] = []
         self._pending_errs: List[torch.Tensor] = []
+        # per FULL join phase, its build rows' matched flags over this run
+        self._matched: Dict[int, torch.Tensor] = {}
         if not isinstance(lin.source, (TableScanNode, ValuesNode)):
-            # Generic pipeline barrier: materialize the subtree (e.g. an
-            # aggregation feeding a join probe side) and scan its result.
+            # A pipeline barrier: run the subtree and scan its result.
             t0 = time.perf_counter()
-            sub = self._sub_executor(lin.source)
-            table = sub.run()
+            lin.source = ValuesNode(self._run_sub(lin.source), id=lin.source.id)
             self.build_seconds += time.perf_counter() - t0
-            self.build_expansions += sub.build_expansions + sub.expansions
-            lin.source = ValuesNode(table, id=lin.source.id)
         self.lin = lin
         self.source_table = lin.source.table.select(
             list(lin.source.output_schema.names)
@@ -1419,6 +1462,49 @@ class LocalExecutor:
                     out_schema = step[1].output_schema
             self.out_schema = out_schema
             self._plan_device_sort()
+
+    def _absorb(self, sub: "LocalExecutor") -> None:
+        """Keep a sub-executor's expansion and window reports."""
+        self.build_expansions += sub.build_expansions + sub.expansions
+        self.window_chunks += sub.window_chunks
+
+    def _run_sub(self, node: PlanNode) -> Table:
+        sub = self._sub_executor(node)
+        table = sub.run()
+        self._absorb(sub)
+        return table
+
+    def _materialize_source(self, node: PlanNode) -> Table:
+        """The host Table of a window or set-operation source: a window (one
+        device pass a chunk of whole partitions), a UNION ALL (inputs aligned
+        by POSITION, SQL set-op semantics, renamed to the first input's
+        names) or a MergeExchange (inputs concatenated, then sorted again by
+        the device OrderBy, stable, so the order equals the reference's k-way
+        merge).  Any other barrier is a sub-executor's run (``_run_sub``)."""
+        from .grouped import concat_tables
+
+        if isinstance(node, WindowNode):
+            child = self._run_sub(node.source)
+            table, chunks = _materialize_window(node, child, self.tile_rows, self.device)
+            self.window_chunks += chunks
+            return table
+        if isinstance(node, UnionAllNode):
+            first = node.output_schema
+            parts = []
+            for s in node.inputs:
+                p = self._run_sub(s)
+                if list(p.schema.names) != list(first.names):
+                    ren = dict(zip(p.schema.names, first.names))
+                    p = Table(
+                        first,
+                        {ren[n]: v for n, v in p.columns.items()},
+                        {ren[n]: v for n, v in p.string_tables.items()},
+                        {ren[n]: v for n, v in p.validities.items()},
+                    )
+                parts.append(p)
+            return concat_tables(parts)
+        merged = concat_tables([self._run_sub(s) for s in node.inputs])
+        return self._run_sub(OrderByNode(ValuesNode(merged), node.keys))
 
     def _sub_executor(self, node: PlanNode) -> "LocalExecutor":
         """An executor for a build side or a barrier: the parent's tile size,
@@ -1486,26 +1572,44 @@ class LocalExecutor:
             n = self.source_table.num_tiles(self.capacity)
         if not self._pre_segments:
             return make, n
-        return (lambda: self._expanded_tiles(make())), n
+        return (lambda: self._expanded_tiles(make())), n + len(self._full_joins())
+
+    def _full_joins(self) -> List[int]:
+        """Indices of the expansion phases whose join is FULL."""
+        return [
+            i for i, (_, ex) in enumerate(self._pre_segments)
+            if ex.node.join_type == JoinType.FULL
+        ]
 
     def _expanded_tiles(self, tiles):
         self.expansions = []
         self._pending_errs = []
         self._expanded_rows = 0
+        self._matched = {i: self._pre_segments[i][1].init_matched() for i in self._full_joins()}
         for tile in tiles:
             yield self._expand_tile(tile)
+        # FULL join epilogue: after every real tile has marked its matches,
+        # the unmatched build rows enter the pipeline just above their join,
+        # so the later steps and the aggregation see them
+        for j in sorted(self._matched):
+            tail = self._pre_segments[j][1].full_tail(self._matched[j])
+            yield self._expand_tile(tail, start=j + 1)
 
-    def _expand_tile(self, batch: Batch) -> Batch:
-        """Run the expansion-join phases on one tile: each phase's steps, the
-        spans, ONE scalar read of the output row count (it sizes the
+    def _expand_tile(self, batch: Batch, start: int = 0) -> Batch:
+        """Run the expansion-join phases from ``start`` on one tile: each
+        phase's steps, the spans (a FULL join ORs its build rows' matched
+        flags), ONE scalar read of the output row count (it sizes the
         power-of-two output bucket), the expansion.  The expanded batch's
         row offset continues over the run, so unique ids assigned after it
         stay unique across tiles (the JAX package leaves it unset: ids start
         at 0 in every expanded tile)."""
-        for steps, ex in self._pre_segments:
+        for i in range(start, len(self._pre_segments)):
+            steps, ex = self._pre_segments[i]
             batch, err = apply_streaming(batch, steps)
             self._pending_errs.append(err)
             spans = ex.probe_spans(batch)
+            if i in self._matched:
+                self._matched[i] = self._matched[i] | spans[4]
             total = int(fetch_tree(spans[3]))
             out_cap = bucket_of(max(total, 1))
             self.expansions.append((out_cap, total))
@@ -1766,21 +1870,8 @@ class LocalExecutor:
 
     # ---- collect pipelines -----------------------------------------------------
     def _result_table(self, arrays, layout, strings) -> Table:
-        """Host Table of a collect pipeline from fetched flat arrays (per
-        column its data, then its validity where the layout says so)."""
-        cols: Dict[str, np.ndarray] = {}
-        validities: Dict[str, np.ndarray] = {}
-        k = 0
-        for name, dtype, has_validity in zip(
-            self.out_schema.names, self.out_schema.types, layout
-        ):
-            cols[name] = _host_widen(arrays[k], dtype)
-            k += 1
-            if has_validity:
-                if not arrays[k].all():
-                    validities[name] = arrays[k]
-                k += 1
-        return Table(self.out_schema, cols, dict(strings), validities)
+        """Host Table of a collect pipeline from fetched flat arrays."""
+        return _host_table(self.out_schema, arrays, layout, strings)
 
     def _run_collect(self, make_tiles, stats) -> Table:
         """Collect pipeline: every tile's compacted live prefix, fetched after
@@ -1817,15 +1908,17 @@ class LocalExecutor:
         spec, keep = self._device_sort
         tile_keep = None if keep is None else bucket_of(max(keep, 1))
         t0 = time.perf_counter()
-        chunks, counts, errs = [], [], []
-        layout, strings = None, {}
+        chunks, layouts, counts, errs = [], [], [], []
+        strings = {}
         for tile in make_tiles():
             batch2, err = apply_streaming(tile, self.lin.steps)
             arrays, layout, count = tile_sorted_prefix(spec, batch2, tile_keep)
             strings.update(_batch_strings(batch2))
             chunks.append(arrays)
+            layouts.append(layout)
             counts.append(count)
             errs.append(err)
+        chunks, layout = _align_layouts(chunks, layouts)
         if len(chunks) == 1:
             flat, live_d = chunks[0], counts[0]
         else:
@@ -1936,6 +2029,105 @@ def _concat_tables(schema: RowType, parts: Sequence[Table]) -> Table:
     for p in parts:
         strings.update(p.string_tables)
     return Table(schema, cols, strings, validities)
+
+
+def _align_layouts(chunks, layouts):
+    """Give every chunk's flat arrays the same layout: a column that carries
+    a validity in any chunk gets an all-valid one where it has none.  (A FULL
+    join's tail tile carries NULL probe columns that the other tiles hold
+    without a validity; the JAX package concatenates such chunks as they
+    are, and its rows then come out misaligned.)"""
+    union = [any(col) for col in zip(*layouts)]
+    out = []
+    for arrays, layout in zip(chunks, layouts):
+        if list(layout) == union:
+            out.append(arrays)
+            continue
+        fixed, k = [], 0
+        for has, want in zip(layout, union):
+            data = arrays[k]
+            fixed.append(data)
+            k += 1
+            if has:
+                fixed.append(arrays[k])
+                k += 1
+            elif want:
+                fixed.append(torch.ones(data.shape, dtype=torch.bool, device=data.device))
+        out.append(fixed)
+    return out, union
+
+
+def _host_table(schema: RowType, arrays, layout, strings) -> Table:
+    """Host Table from fetched flat arrays (per column its data, then its
+    validity where the layout says so; an all-valid validity is dropped)."""
+    cols: Dict[str, np.ndarray] = {}
+    validities: Dict[str, np.ndarray] = {}
+    k = 0
+    for name, dtype, has_validity in zip(schema.names, schema.types, layout):
+        cols[name] = _host_widen(arrays[k], dtype)
+        k += 1
+        if has_validity:
+            if not arrays[k].all():
+                validities[name] = arrays[k]
+            k += 1
+    return Table(schema, cols, dict(strings), validities)
+
+
+def _window_one_tile(wnode, child: Table, capacity: int, device) -> Table:
+    """Run a WindowNode over one host Table slice as one device pass: upload
+    one tile, sort, compute, compact, fetch the live prefix."""
+    from .sort import flatten_columns
+    from .window import WindowExec
+
+    batch = child.tile(0, capacity, device)
+    out = compact(WindowExec(wnode, capacity).apply(batch))
+    arrays, layout = flatten_columns(out.columns, out.capacity)
+    n = int(fetch_tree(out.length))
+    return _host_table(wnode.output_schema, fetch_prefix(arrays, n), layout, _batch_strings(out))
+
+
+def _materialize_window(wnode, child: Table, tile_rows: int, device):
+    """Execute a WindowNode over its child's host Table; returns (Table,
+    [(tile capacity, rows) of every device pass]).
+
+    Window functions never cross partitions, so an input larger than one
+    tile splits into chunks of WHOLE partitions (greedy packing after a host
+    sort by the partition keys) and each chunk runs as one device pass — the
+    analog of the reference's SortWindowBuild emitting one partition batch
+    at a time (velox/exec/WindowBuild.h).  A partition larger than a tile,
+    and a window without partition keys, gets a pass sized to fit.  The JAX
+    package spills finished chunks to disk past a threshold; spilling is not
+    ported (it comes with the memory and spill slice)."""
+    from .grouped import concat_tables
+
+    rows = child.num_rows
+    if rows <= tile_rows or not wnode.partition_keys:
+        cap = _pick_capacity(max(rows, 1), 1 << 62)
+        return _window_one_tile(wnode, child, cap, device), [(cap, rows)]
+    # group whole partitions: host sort by partition keys (rank-ordered)
+    order = _sort_indices(child, [SortKey(k) for k in wnode.partition_keys])
+    sorted_t = _table_slice(child, order)
+    diff = np.zeros(rows, dtype=bool)
+    diff[0] = True
+    for k in wnode.partition_keys:
+        key = np.asarray(sorted_t.columns[k])
+        diff[1:] |= key[1:] != key[:-1]
+    starts = np.flatnonzero(diff)
+    sizes = np.diff(np.append(starts, rows))
+    chunks: List[Tuple[int, int]] = []
+    cur_start, cur_rows = 0, 0
+    for st, sz in zip(starts, sizes):
+        if cur_rows and cur_rows + int(sz) > tile_rows:
+            chunks.append((cur_start, int(st)))
+            cur_start, cur_rows = int(st), 0
+        cur_rows += int(sz)
+    chunks.append((cur_start, rows))
+    parts, passes = [], []
+    for a, b in chunks:
+        cap = _pick_capacity(b - a, 1 << 62)
+        parts.append(_window_one_tile(wnode, _table_slice(sorted_t, slice(a, b)), cap, device))
+        passes.append((cap, b - a))
+    return concat_tables(parts), passes
 
 
 def run_plan(

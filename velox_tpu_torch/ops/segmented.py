@@ -21,21 +21,27 @@ a gather or one scatter into run slots:
 * ``SortedRuns`` — the run structure of one sorted tile, built once and reused
   for every accumulator: ``reduce`` (sum / min / max), ``first``,
   ``start_positions``, ``run_mask``.
-* ``segmented_scan`` — inclusive scan that resets at segment starts.
+* ``segmented_scan`` — inclusive scan that resets at segment starts (sum,
+  min, max, first: the window functions' running frames).
 * ``last_flagged`` / ``next_flagged`` — the value at the last flagged row at
   or before each row (the next one at or after it): the propagation the
   reference writes as a running maximum (``lax.cummax``), built here from a
   prefix count of the flags, one scatter and one gather.  torch's
   ``cummax`` / ``cummin`` give one row of a tensor to one block, so on a
   column of 2^24 rows they run 50x slower than these three passes.
+* ``sparse_table`` / ``sparse_table_query`` — the range-min/max table of the
+  window's bounded frames (and of the running min / max).
+* ``rank_in_segments`` — per probe, the position of the first row of a
+  (segment, key)-sorted array at or after it: the window's RANGE frame
+  bounds.
 
 Index tensors (``run_index``, ``end_positions``, ``start_positions``) are int64,
 the dtype torch indexes with; the JAX package holds them as int32.  Gathers
 clamp their indices explicitly (``jnp.take(..., mode="clip")`` there).
 
 Not ported yet (each raises ``NotImplementedError`` by name): the bitwise ops
-``band`` / ``bor``, lexicographic pairs (``reduce_pair``,
-``segmented_scan_pair``), ``sparse_table`` and ``rank_in_segments``.
+``band`` / ``bor`` and lexicographic pairs (``reduce_pair``,
+``segmented_scan_pair``).
 
 Reference counterpart: velox/exec/HashTable.h kArray mode for the direct
 half, velox/exec/StreamingAggregation.h for the run half.
@@ -46,6 +52,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from .sortkey import sort_operands
 
 _SCATTER = {"min": "amin", "max": "amax"}
 
@@ -144,9 +152,87 @@ def _not_ported(name: str):
 
 
 segmented_scan_pair = _not_ported("segmented_scan_pair")
-sparse_table = _not_ported("sparse_table")
-sparse_table_query = _not_ported("sparse_table_query")
-rank_in_segments = _not_ported("rank_in_segments")
+
+_COMBINE = {"min": torch.minimum, "max": torch.maximum}
+
+
+def sparse_table(values: torch.Tensor, op: str) -> torch.Tensor:
+    """Power-of-two range-min/max table: ``table[j, i]`` = op over
+    ``values[i, i + 2^j)`` (the tail of each level repeats the previous
+    level's tail, as in the JAX package).  O(n log n) work once; any
+    [lo, hi] range then reduces with two gathers (the classic RMQ sparse
+    table).  ``torch.minimum`` / ``maximum`` propagate NaN as ``jnp``'s do."""
+    comb = _COMBINE[op]
+    cap = values.shape[0]
+    levels = 1
+    while (1 << (levels - 1)) < cap:
+        levels += 1
+    table = torch.empty((levels, cap), dtype=values.dtype, device=values.device)
+    table[0] = values
+    step = 1
+    for j in range(1, levels):
+        prev = table[j - 1]
+        comb(prev[:-step], prev[step:], out=table[j, :-step])
+        table[j, -step:] = prev[-step:]
+        step *= 2
+    return table
+
+
+def _floor_log2(w: torch.Tensor) -> torch.Tensor:
+    """floor(log2(w)) of positive int64 values below 2^53, exactly: the
+    binary exponent of the float64 value."""
+    return torch.frexp(w.to(torch.float64)).exponent.to(torch.int64) - 1
+
+
+def sparse_table_query(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, op: str, ident):
+    """op over ``values[lo..hi]`` per row; an empty range (hi < lo) gives
+    ``ident``."""
+    levels, cap = table.shape
+    lo = lo.to(torch.int64)
+    hi = hi.to(torch.int64)
+    j = _floor_log2((hi - lo + 1).clamp(min=1)).clamp(0, levels - 1)
+    flat = table.reshape(-1)
+    a = _take(flat, j * cap + lo.clamp(0, cap - 1))
+    b = _take(flat, j * cap + (hi - (1 << j) + 1).clamp(0, cap - 1))
+    out = _COMBINE[op](a, b)
+    return torch.where(hi < lo, torch.full_like(out, ident), out)
+
+
+def rank_in_segments(
+    seg_ids: torch.Tensor,
+    keys: torch.Tensor,
+    probe_seg: torch.Tensor,
+    probe_keys: torch.Tensor,
+    inclusive: bool,
+) -> torch.Tensor:
+    """Per probe: the number of data rows that sort before it by (segment,
+    key) — with the data rows already sorted by (segment, key), as they are
+    inside a window's partition sort, that is the position of the first row
+    of the probe's segment whose key is >= the probe key (``inclusive``:
+    > the probe key).  Returns int64.
+
+    One merge sort of data rows and probes by (segment, key, flag), the flag
+    putting probes after equal data keys when inclusive and before them
+    otherwise, a prefix count of the data rows, and one scatter back to
+    probe order (probe row ids are distinct).  The JAX package sorts a second
+    time to route the counts back; the counts are the same."""
+    cap = keys.shape[0]
+    n = probe_keys.shape[0]
+    dev = keys.device
+    zeros = lambda m: torch.zeros((m,), dtype=torch.int64, device=dev)  # noqa: E731
+    ones = lambda m: torch.ones((m,), dtype=torch.int64, device=dev)  # noqa: E731
+    all_seg = torch.cat([seg_ids.to(torch.int64), probe_seg.to(torch.int64)])
+    all_key = torch.cat([keys, probe_keys.to(keys.dtype)])
+    flag = torch.cat([zeros(cap), ones(n)]) if inclusive else torch.cat([ones(cap), zeros(n)])
+    is_probe = torch.cat([zeros(cap), ones(n)])
+    src = torch.cat([
+        torch.arange(cap, dtype=torch.int64, device=dev),
+        torch.arange(n, dtype=torch.int64, device=dev),
+    ])
+    _, _, _, isp_s, src_s = sort_operands([all_seg, all_key, flag, is_probe, src], num_keys=3)
+    cum_data = torch.cumsum(1 - isp_s, 0)  # data rows at or before this slot
+    slot = torch.where(isp_s == 1, src_s, torch.full_like(src_s, n))
+    return zeros(n + 1).scatter_(0, slot, cum_data)[:n]
 
 
 def _flagged_table(flags: torch.Tensor, values: torch.Tensor, fill):
@@ -179,41 +265,54 @@ def next_flagged(flags: torch.Tensor, values: torch.Tensor, fill) -> torch.Tenso
     return table.index_select(0, count - flags.to(torch.int64) + 1)
 
 
-def segmented_scan(values: torch.Tensor, boundary: torch.Tensor, op: str) -> torch.Tensor:
-    """Inclusive scan of ``op`` that resets at rows where boundary=True.
+def _segmented_float_sum(values: torch.Tensor, boundary: torch.Tensor) -> torch.Tensor:
+    """Inclusive sum that resets at boundaries, as a log-step scan of the
+    pairs (sum, saw a boundary) under the JAX package's combine rule: a
+    window's running total never includes another segment's values, so
+    no rounding of earlier segments leaks into it."""
+    v, f = values.clone(), boundary.clone()
+    step, n = 1, values.shape[0]
+    while step < n:
+        v_new, f_new = v.clone(), f.clone()
+        tail_f = f[step:]
+        v_new[step:] = torch.where(tail_f, v[step:], v[:-step] + v[step:])
+        f_new[step:] = tail_f | f[:-step]
+        v, f = v_new, f_new
+        step *= 2
+    return v
 
-    sum: a prefix sum minus the prefix at the segment's start (exact for
-    integers: wrapping cancels; floats round as two prefix sums do).
-    min / max: the segment id is non-decreasing, so the running extreme of the
-    pair (segment id, value rank) is the segmented running extreme; ranks come
-    from one stable sort.  That is a true running maximum, not a propagation,
-    so it stays on ``torch.cummax``; no path of the engine calls it."""
+
+def segmented_scan(values: torch.Tensor, boundary: torch.Tensor, op: str) -> torch.Tensor:
+    """Inclusive scan of ``op`` that resets at rows where boundary=True
+    (rows before the first boundary form one segment from row 0).
+
+    sum: for integers a prefix sum minus the prefix before the segment's
+    start (exact: wrapping cancels); for floats a log-step segmented scan,
+    so a segment's sum holds only its own rows.  min / max: op over
+    [segment start, row] from one sparse table (exact; the JAX package runs
+    an associative scan).  first: the value at the segment's first row, a
+    gather at the last boundary's position (positions increase)."""
     n = values.shape[0]
     if n == 0:
         return values.clone()
     iota = torch.arange(n, dtype=torch.int64, device=values.device)
+    # positions increase, so the last boundary's position is their running
+    # maximum
+    start = last_flagged(boundary, iota, 0)
+    if op == "first":
+        return values.index_select(0, start)
     if op == "sum":
+        if values.dtype.is_floating_point:
+            return _segmented_float_sum(values, boundary)
         totals = torch.cumsum(values, 0)
-        # positions increase, so the last boundary's position is their
-        # running maximum
-        start = last_flagged(boundary, iota, 0)
         before = torch.where(
             start > 0, _take(totals, start - 1), torch.zeros_like(totals)
         )
         return (totals - before).to(values.dtype)
-    if op not in _SCATTER:
+    if op not in _COMBINE:
         raise NotImplementedError(f"segmented_scan op {op!r} is not ported yet")
-    seg = torch.cumsum(boundary, 0)
-    order = torch.argsort(values, stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = iota
-    if op == "min":
-        rank = (n - 1) - rank
-    bits = max(1, int(n - 1).bit_length())
-    best = torch.cummax((seg << bits) | rank, 0).values & ((1 << bits) - 1)
-    if op == "min":
-        best = (n - 1) - best
-    return values.index_select(0, order.index_select(0, best))
+    table = sparse_table(values, op)
+    return sparse_table_query(table, start, iota, op, identity_for(op, values.dtype))
 
 
 def run_boundaries(diff: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

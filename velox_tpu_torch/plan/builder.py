@@ -6,10 +6,13 @@ expressions, method chaining for operators, automatic projection of aggregate
 arguments, automatic string-literal binding against scan dictionaries.
 
 Ported so far: ``table_scan``, ``values``, ``filter``, ``project``,
-``aggregation`` (plain aggregates and ``count(distinct x)``), ``hash_join``,
-``cross_join``, ``assign_unique_id``, ``enforce_single_row``, ``orderby``,
-``topn``, ``limit``, ``build``.  Every other method of the reference's class
-raises ``NotImplementedError`` naming the slice that brings it.
+``aggregation`` (plain aggregates and ``count(distinct x)``), ``hash_join``
+(every join type), ``cross_join``, ``nested_loop_join``, ``union_all``,
+``merge_exchange``, ``window``, ``row_number``, ``topn_row_number``,
+``mark_distinct``, ``assign_unique_id``, ``enforce_single_row``, ``orderby``,
+``topn``, ``limit``, ``build``.  ``unnest`` and ``group_id`` (complex types),
+``arrow_stream`` and ``table_write`` (file formats) raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ from .nodes import (
     HashJoinNode,
     JoinType,
     LimitNode,
+    MergeExchangeNode,
     OrderByNode,
     PlanNode,
     ProjectNode,
     SortKey,
     TableScanNode,
     TopNNode,
+    UnionAllNode,
     ValuesNode,
 )
 
@@ -424,14 +429,129 @@ class PlanBuilder:
     def build(self) -> PlanNode:
         return self.node
 
+    def nested_loop_join(
+        self,
+        right: Union["PlanBuilder", PlanNode],
+        output: Sequence[str],
+        join_type: Union[str, JoinType] = JoinType.INNER,
+        condition: Optional[str] = None,
+    ) -> "PlanBuilder":
+        """General nested-loop join: any (non-equi) condition, any of
+        INNER / LEFT / RIGHT / FULL (reference: core::NestedLoopJoinNode,
+        exec/NestedLoopJoinProbe.cpp:23).
+
+        Lowered as in the JAX package: the Cartesian pairing rides the
+        expansion hash join with a constant key on both sides, and the
+        condition becomes the join filter, so the filtered-join lowerings keep
+        LEFT / FULL unmatched rows with NULL build columns.  RIGHT flips to
+        LEFT.  The product is materialized a tile at a time."""
+        jt = JoinType(join_type)
+        right_node = right.node if isinstance(right, PlanBuilder) else right
+        if jt == JoinType.RIGHT:
+            # flip: probe the current side's rows from the right
+            return PlanBuilder(right_node).nested_loop_join(
+                self.node, output, JoinType.LEFT, condition
+            )._steal(self)
+        rb = PlanBuilder(right_node).project(
+            list(right_node.output_schema.names) + ["1 as __xk_r"]
+        )
+        self.project(list(self.schema.names) + ["1 as __xk_l"])
+        return self.hash_join(
+            rb, ["__xk_l"], ["__xk_r"], output=list(output), join_type=jt,
+            filter=condition,
+        )
+
+    def _steal(self, other: "PlanBuilder") -> "PlanBuilder":
+        """Move this builder's node into ``other`` (RIGHT-join flips)."""
+        other.node = self.node
+        return other
+
+    def union_all(self, inputs: Sequence[Union["PlanBuilder", PlanNode]]) -> "PlanBuilder":
+        """Row-concatenation of same-typed inputs (SQL UNION ALL; reference:
+        the LocalPartition round-robin lowering).  A source: the builder must
+        be empty."""
+        if self.node is not None:
+            raise ValueError("union_all is a source")
+        self.node = UnionAllNode(
+            tuple(i.node if isinstance(i, PlanBuilder) else i for i in inputs)
+        )
+        return self
+
+    def merge_exchange(
+        self,
+        inputs: Sequence[Union["PlanBuilder", PlanNode]],
+        keys: Sequence[str],
+    ) -> "PlanBuilder":
+        """Sorted merge of already-sorted inputs (core::MergeExchangeNode).
+        A source: the builder must be empty."""
+        if self.node is not None:
+            raise ValueError("merge_exchange is a source")
+        nodes = tuple(i.node if isinstance(i, PlanBuilder) else i for i in inputs)
+        self.node = nodes[0]  # resolve sort keys against the input schema
+        self.node = MergeExchangeNode(nodes, self._sort_keys(keys))
+        return self
+
+    def window(
+        self,
+        partition_keys: Sequence[str],
+        order_keys: Sequence[str],
+        calls: Sequence[str],
+    ) -> "PlanBuilder":
+        """calls: 'rank() as r' / 'sum(x) as s' / 'lag(x, 2) as prev'."""
+        from ..exec.window import WindowNode, parse_window_call
+
+        parsed, names = [], []
+        for i, item in enumerate(calls):
+            m = _AS_RE.match(item)
+            if m:
+                body, name = m.group("expr"), m.group("name")
+            else:
+                body, name = item, f"w{i}"
+            parsed.append(parse_window_call(body))
+            names.append(name)
+        self.node = WindowNode(
+            self.node,
+            tuple(partition_keys),
+            self._sort_keys(order_keys),
+            tuple(parsed),
+            tuple(names),
+        )
+        return self
+
+    def row_number(
+        self,
+        partition_keys: Sequence[str],
+        name: str = "row_number",
+        limit: Optional[int] = None,
+    ) -> "PlanBuilder":
+        """Reference: core::RowNumberNode — row numbers per partition in
+        arbitrary order, with an optional per-partition limit."""
+        self.window(partition_keys, [], [f"row_number() as {name}"])
+        if limit is not None:
+            self.filter(f"{name} <= {limit}")
+        return self
+
+    def topn_row_number(
+        self,
+        partition_keys: Sequence[str],
+        order_keys: Sequence[str],
+        count: int,
+        name: str = "row_number",
+    ) -> "PlanBuilder":
+        """Reference: core::TopNRowNumberNode — keep the top ``count`` rows of
+        each partition by the given order."""
+        self.window(partition_keys, order_keys, [f"row_number() as {name}"])
+        return self.filter(f"{name} <= {count}")
+
+    def mark_distinct(self, marker: str, keys: Sequence[str]) -> "PlanBuilder":
+        """Reference: core::MarkDistinctNode — a boolean column that is True
+        for the first occurrence of each distinct key combination."""
+        tmp = f"_{marker}_rn"
+        self.window(list(keys), [], [f"row_number() as {tmp}"])
+        cols = [n for n in self.schema.names if n != tmp]
+        return self.project(cols + [f"{tmp} = 1 as {marker}"])
+
     # ---- later slices ----------------------------------------------------
-    nested_loop_join = _later("nested_loop_join", "non-equi joins")
-    union_all = _later("union_all", "union")
-    merge_exchange = _later("merge_exchange", "union")
-    window = _later("window", "window")
-    row_number = _later("row_number", "window")
-    topn_row_number = _later("topn_row_number", "window")
-    mark_distinct = _later("mark_distinct", "window")
     unnest = _later("unnest", "complex types")
     group_id = _later("group_id", "complex types")
     arrow_stream = _later("arrow_stream", "file formats")

@@ -6,8 +6,9 @@ plans are *fully specified physical plans* — no SQL, no optimizer; an
 integrator (or PlanBuilder) constructs the tree.
 
 This package has the nodes its executor runs so far: TableScan, Values,
-Filter, Project, Aggregation, HashJoin, AssignUniqueId, and the finishers
-OrderBy / TopN / Limit / EnforceSingleRow.  Unnest, group-id, window, union,
+Filter, Project, Aggregation, HashJoin, AssignUniqueId, UnionAll,
+MergeExchange, the finishers OrderBy / TopN / Limit / EnforceSingleRow, and
+(in ``exec/window.py``, as in the JAX package) Window.  Unnest, group-id,
 exchange and table-write nodes come with the slices that execute them.
 
 Nodes carry typed expressions from ``expr``; output schemas are computed
@@ -258,3 +259,38 @@ class HashJoinNode(PlanNode):
             else:
                 raise KeyError(f"join output column {c!r} not in either input")
         self.output_schema = RowType(self.output_columns, types)
+
+
+@dataclasses.dataclass
+class UnionAllNode(PlanNode):
+    """Row-concatenation of same-schema inputs (reference: the UNION ALL
+    lowering onto LocalPartition round-robin, velox/exec/LocalPartition.h:25 —
+    here a pipeline barrier that concatenates materialized children)."""
+
+    inputs: Tuple[PlanNode, ...]
+    id: str = dataclasses.field(default_factory=lambda: _next_id("unionall"))
+
+    def __post_init__(self):
+        self.sources = tuple(self.inputs)
+        first = self.inputs[0].output_schema
+        for other in self.inputs[1:]:
+            s = other.output_schema
+            if list(s.types) != list(first.types):
+                raise TypeError(f"UNION ALL input schemas differ: {first} vs {s}")
+        self.output_schema = first
+
+
+@dataclasses.dataclass
+class MergeExchangeNode(PlanNode):
+    """Sorted merge of several already-sorted sources (reference:
+    core::MergeExchangeNode PlanNode.h:890 + exec/Merge.h TreeOfLosers; here
+    the concatenated inputs are sorted again by a stable device sort, which
+    yields the same order)."""
+
+    inputs: Tuple[PlanNode, ...]
+    keys: Tuple[SortKey, ...]
+    id: str = dataclasses.field(default_factory=lambda: _next_id("mergex"))
+
+    def __post_init__(self):
+        self.sources = tuple(self.inputs)
+        self.output_schema = self.inputs[0].output_schema

@@ -1,9 +1,9 @@
 """SQL SELECT -> PlanNode planner.
 
 A copy of the JAX package's ``sql/planner.py``: the same texts plan to the
-same trees over this package's ``PlanBuilder``.  Branches that no TPC-H text
-takes (``union_all``, ``nested_loop_join``, window functions) reach builder
-methods that are not ported yet and raise by name.
+same trees over this package's ``PlanBuilder``, window functions, UNION [ALL]
+and non-equi joins included.  Branches that reach builder methods not ported
+yet (``unnest``, ``group_id``: complex types and GROUPING SETS) raise by name.
 
 Reference seam: velox/duckdb/conversion/QueryPlanner.h:24 (parseQuery over an
 embedded DuckDB) and exec/tests/utils/QueryAssertions — here re-implemented as
