@@ -2110,7 +2110,14 @@ def _materialize_window(wnode, child: Table, tile_rows: int, device):
     diff = np.zeros(rows, dtype=bool)
     diff[0] = True
     for k in wnode.partition_keys:
+        # (null flag, value zeroed under NULL), the key _sort_indices sorts
+        # by: every NULL key is one partition
         key = np.asarray(sorted_t.columns[k])
+        validity = sorted_t.validities.get(k)
+        if validity is not None:
+            validity = np.asarray(validity)
+            key = np.where(validity, key, np.zeros_like(key))
+            diff[1:] |= validity[1:] != validity[:-1]
         diff[1:] |= key[1:] != key[:-1]
     starts = np.flatnonzero(diff)
     sizes = np.diff(np.append(starts, rows))

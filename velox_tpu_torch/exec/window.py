@@ -178,6 +178,17 @@ def parse_window_call(text: str) -> WindowCall:
     raise KeyError(f"unknown window function {fn!r}")
 
 
+def _null_flagged(decoded, nulls_first: bool) -> Tuple[torch.Tensor, ...]:
+    """A sort key as (null flag, value zeroed under NULL), or (value,) when
+    the column has no validity.  The flag sorts ascending: NULLs last unless
+    ``nulls_first``."""
+    values, validity = decoded
+    if validity is None:
+        return (values,)
+    flag = validity if nulls_first else ~validity
+    return flag, torch.where(validity, values, torch.zeros_like(values))
+
+
 def _floordiv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="floor")
 
@@ -196,23 +207,35 @@ class WindowExec:
         in_schema = node.source.output_schema
         mask = batch.active_mask()
 
-        pkeys = [batch.column(k).decode(cap)[0] for k in node.partition_keys]
+        # every key is (null flag, value zeroed under NULL): all NULL keys
+        # form one partition / peer group, and an order key's flag sorts its
+        # NULLs first or last whatever the direction (SortKey.nulls_first;
+        # NULLS LAST by default).  A key with no validity needs no flag.
+        pkeys = [_null_flagged(batch.column(k).decode(cap), False) for k in node.partition_keys]
         okeys = []
         for sk in node.order_keys:
-            v, _ = batch.column(sk.name).decode(cap)
+            v, validity = batch.column(sk.name).decode(cap)
             if not sk.ascending:
                 v = -v if v.dtype.is_floating_point else -v.to(torch.int64)
-            okeys.append(v)
+            okeys.append(_null_flagged((v, validity), sk.nulls_first))
 
         # one stable lexicographic sort (dead rows last); every input column
         # and validity follows the permutation, so the output is the sorted
         # batch with the window columns appended
         idx = torch.arange(cap, dtype=torch.int64, device=dev)
-        keys = [~mask] + pkeys + okeys
+        pflat = [t for key in pkeys for t in key]
+        oflat = [t for key in okeys for t in key]
+        keys = [~mask] + pflat + oflat
         sorted_ops = sort_operands(keys + [idx], num_keys=len(keys))
         s_mask = ~sorted_ops[0]
-        s_pkeys = sorted_ops[1 : 1 + len(pkeys)]
-        s_okeys = sorted_ops[1 + len(pkeys) : len(keys)]
+        s_pkeys = sorted_ops[1 : 1 + len(pflat)]
+        s_oflat = sorted_ops[1 + len(pflat) : len(keys)]
+        # an order key's value is the last tensor of its (flag?, value) group
+        s_okeys, s_oflags, at = [], [], 0
+        for key in okeys:
+            at += len(key)
+            s_okeys.append(s_oflat[at - 1])
+            s_oflags.append(s_oflat[at - 2] if len(key) == 2 else None)
         perm = sorted_ops[-1]
         s_cols: List[Tuple[torch.Tensor, Optional[torch.Tensor]]] = []
         for col in batch.columns:
@@ -227,9 +250,17 @@ class WindowExec:
             part_diff = part_diff | (kv != torch.roll(kv, 1))
         part_boundary = s_mask & ((idx == 0) | part_diff)
         peer_diff = part_diff
-        for kv in s_okeys:
+        for kv in s_oflat:
             peer_diff = peer_diff | (kv != torch.roll(kv, 1))
         peer_boundary = s_mask & ((idx == 0) | peer_diff)
+        # RANGE k frames search order-key values inside a partition; the NULL
+        # rows of the key sit together at one end of it and span only
+        # themselves, so the search runs over (partition, null flag) runs
+        range_diff = part_diff
+        for flag in s_oflags[:1]:
+            if flag is not None:
+                range_diff = range_diff | (flag != torch.roll(flag, 1))
+        range_boundary = s_mask & ((idx == 0) | range_diff)
 
         part_runs = SortedRuns(part_boundary, s_mask)
         part_id = part_runs.run_index  # per-row partition ordinal
@@ -366,6 +397,7 @@ class WindowExec:
                 out, ok = self._framed(
                     call, values, validity, s_mask, s_okeys, idx, ones, part_boundary,
                     part_id, part_start, part_last(), decimal_scale(call),
+                    range_boundary,
                 )
             elif name in ("sum", "min", "max", "avg", "count"):
                 if call.arg is None:  # count() with no argument
@@ -416,7 +448,7 @@ class WindowExec:
     @staticmethod
     def _framed(
         call, values, validity, s_mask, s_okeys, idx, ones, part_boundary,
-        part_id, part_start, part_last, scale,
+        part_id, part_start, part_last, scale, range_boundary,
     ):
         """A sum / avg / count / min / max / variance over a k-bounded frame.
 
@@ -438,7 +470,8 @@ class WindowExec:
             if len(s_okeys) != 1:
                 raise NotImplementedError("RANGE k frames need exactly one ORDER BY key")
             okey = s_okeys[0]
-            seg = torch.where(s_mask, part_id, torch.full_like(part_id, 1 << 40))
+            range_id = torch.cumsum(range_boundary.to(torch.int64), 0)
+            seg = torch.where(s_mask, range_id, torch.full_like(range_id, 1 << 40))
             if k_pre is None:
                 lo = part_start
             else:
