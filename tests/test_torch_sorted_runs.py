@@ -3,9 +3,9 @@ the JAX package's, on the same numpy inputs (made from a seed).
 
 Integers, masks and positions must agree exactly (the port holds index
 tensors as int64 where the JAX package holds int32: values are compared, not
-dtypes).  A run sum of DOUBLE values is a prefix sum and a difference in both
-packages and the two frameworks add in different orders: rtol 1e-9, with an
-absolute slack of 1e-6 for sums that cancel to nearly nothing."""
+dtypes).  A run sum of DOUBLE values is a prefix sum and a difference in the
+JAX package and a scatter-add of the run's own rows in the port: rtol 1e-9,
+with an absolute slack of 1e-6 for sums that cancel to nearly nothing."""
 
 import numpy as np
 import pytest
@@ -182,18 +182,108 @@ def test_segmented_scan(op, dtype):
 
 
 def test_unported_scans_raise_by_name():
+    """Every op of the JAX package is ported (``band`` / ``bor`` and the
+    pair scans are held to it below); an op neither package has raises by
+    name."""
     x = torch.zeros(4, dtype=torch.int64)
     b = torch.zeros(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="band"):
-        port_seg.segmented_scan(x, b, "band")
-    # sparse_table and rank_in_segments are ported (test_torch_window.py)
-    with pytest.raises(NotImplementedError, match="segmented_scan_pair"):
-        port_seg.segmented_scan_pair(x, b)
+    with pytest.raises(NotImplementedError, match="prod"):
+        port_seg.segmented_scan(x, b, "prod")
     runs = port_seg.SortedRuns(b, b)
-    with pytest.raises(NotImplementedError, match="reduce_pair"):
-        runs.reduce_pair(x, x, b, "min")
-    with pytest.raises(NotImplementedError, match="bor"):
-        runs.reduce(x, b, "bor")
+    with pytest.raises(NotImplementedError, match="prod"):
+        runs.reduce(x, b, "prod")
+    with pytest.raises(NotImplementedError, match="prod"):
+        port_seg.masked_reduce(x, b, "prod")
+
+
+def _bits(n, seed):
+    rng = np.random.default_rng(seed)
+    # a few set bits a row, so ANDs over a run are not all zero
+    return (rng.integers(0, 1 << 62, n) | (1 << 40) | 5).astype(np.int64) & ~(
+        rng.integers(0, 1 << 20, n).astype(np.int64)
+    )
+
+
+@pytest.mark.parametrize("op", ["band", "bor"])
+@pytest.mark.parametrize("case", ["dead_inside", "dead_between", "one_run", "all_distinct"])
+def test_bitwise_run_reduce_and_scan(case, op):
+    keys, mask = _case(case)
+    values = _bits(len(keys), 11)
+    ref, port = _both_runs(keys, mask)
+    n = int(ref.num_runs)
+    vmask = np.random.default_rng(12).random(len(keys)) < 0.9
+    _same(
+        port.reduce(torch.from_numpy(values), torch.from_numpy(vmask), op),
+        ref.reduce(jnp.asarray(values), jnp.asarray(vmask), op), n,
+    )
+    boundary = np.random.default_rng(13).random(len(keys)) < 0.05
+    _same(
+        port_seg.segmented_scan(torch.from_numpy(values), torch.from_numpy(boundary), op),
+        ref_seg.segmented_scan(jnp.asarray(values), jnp.asarray(boundary), op),
+    )
+
+
+@pytest.mark.parametrize("op", ["band", "bor"])
+@pytest.mark.parametrize("groups", [1, 5, 64])
+def test_bitwise_direct_and_masked_reduce(groups, op):
+    rng = np.random.default_rng(groups)
+    values = _bits(N, groups)
+    mask = rng.random(N) < 0.8
+    gids = rng.integers(0, groups, N).astype(np.int32)
+    if groups > 1:
+        gids[gids == 3] = 4  # a group with no rows keeps the identity
+    _same(
+        port_seg.direct_group_reduce(
+            torch.from_numpy(values), torch.from_numpy(mask), torch.from_numpy(gids), groups, op
+        ),
+        ref_seg.direct_group_reduce(jnp.asarray(values), jnp.asarray(mask), jnp.asarray(gids), groups, op),
+    )
+    assert int(port_seg.masked_reduce(torch.from_numpy(values), torch.from_numpy(mask), op)) == int(
+        ref_seg.masked_reduce(jnp.asarray(values), jnp.asarray(mask), op)
+    )
+
+
+def _pair_inputs(n, seed, dtype):
+    rng = np.random.default_rng(seed)
+    # few distinct orderings: ties decide by the smaller payload
+    y = rng.integers(0, 6, n).astype(dtype)
+    x = rng.integers(-50, 50, n).astype(np.int64)
+    return y, x
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("dtype", [np.int64, np.float64])
+def test_pair_scans_and_reductions(op, dtype):
+    keys, mask = _case("dead_inside")
+    y, x = _pair_inputs(len(keys), 21, dtype)
+    vmask = np.random.default_rng(22).random(len(keys)) < 0.9
+    ref, port = _both_runs(keys, mask)
+    n = int(ref.num_runs)
+    got = port.reduce_pair(torch.from_numpy(y), torch.from_numpy(x), torch.from_numpy(vmask), op)
+    want = ref.reduce_pair(jnp.asarray(y), jnp.asarray(x), jnp.asarray(vmask), op)
+    for g, w in zip(got, want):
+        _same(g, w, n)
+    boundary = np.random.default_rng(23).random(len(keys)) < 0.05
+    for g, w in zip(
+        port_seg.segmented_scan_pair(torch.from_numpy(y), torch.from_numpy(x), torch.from_numpy(boundary), op),
+        ref_seg.segmented_scan_pair(jnp.asarray(y), jnp.asarray(x), jnp.asarray(boundary), op),
+    ):
+        _same(g, w)
+    gids = np.random.default_rng(24).integers(0, 7, len(keys)).astype(np.int32)
+    for g, w in zip(
+        port_seg.direct_group_reduce_pair(
+            torch.from_numpy(y), torch.from_numpy(x), torch.from_numpy(vmask), torch.from_numpy(gids), 7, op
+        ),
+        ref_seg.direct_group_reduce_pair(
+            jnp.asarray(y), jnp.asarray(x), jnp.asarray(vmask), jnp.asarray(gids), 7, op
+        ),
+    ):
+        _same(g, w)
+    for g, w in zip(
+        port_seg.masked_reduce_pair(torch.from_numpy(y), torch.from_numpy(x), torch.from_numpy(vmask), op),
+        ref_seg.masked_reduce_pair(jnp.asarray(y), jnp.asarray(x), jnp.asarray(vmask), op),
+    ):
+        assert float(g) == float(w)
 
 
 # ---- ops/sortkey -----------------------------------------------------------

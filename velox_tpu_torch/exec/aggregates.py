@@ -10,12 +10,15 @@ arrays).  Grouped updates are reductions over a static ``num_groups``;
 ungrouped aggregation is the G=1 case.  Each accumulator declares its combine
 op (sum/min/max), from which raw-input updates and partial merges both derive.
 
-Ported so far: count, sum, avg, min, max (and the bounds-proven narrow sum and
-avg), each in the direct modes (``update``) and in sort mode (``run_reduce``
-over a tile's sorted runs, ``merge_runs`` in the carry merge,
-``host_merge_sorted`` in the host merge).  Lexicographic pairs (min_by / max_by), statistical, bitwise, collect and
-sketch aggregates come with later slices; binding one raises ``KeyError`` by
-name.
+Every aggregate of the JAX package's ``bind_aggregate`` is here but the
+sketches (``approx_distinct``, ``bloom_filter_agg``) and the collect
+aggregates, which come with later slices and raise ``KeyError`` by name.
+Each works in the direct modes (``update``), in sort mode (``run_reduce``
+over a tile's sorted runs, ``merge_runs`` in the carry merge) and in the host
+merge (``host_merge_sorted``).  min_by / max_by keep (ordering, payload)
+accumulator *pairs* combined lexicographically (``pairs``), ties broken
+toward the smaller payload; rows where any argument is NULL are skipped, as
+in the JAX package.
 
 Exactness: decimal/integer sums accumulate in int64 (fixed-point), so tiling and
 merge order cannot change results; floating inputs accumulate in float64.
@@ -29,18 +32,29 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..dtypes import BIGINT, DOUBLE, DataType, TypeKind, decimal
+from ..dtypes import BIGINT, BOOLEAN, DOUBLE, DataType, TypeKind, decimal
 from ..ops.segmented import (
     SortedRuns,
     direct_group_reduce,
+    direct_group_reduce_pair,
     identity_for as _identity,
     masked_reduce,
+    masked_reduce_pair,
 )
 
 _COMBINE = {
     "sum": torch.add,
     "min": torch.minimum,
     "max": torch.maximum,
+    "band": torch.bitwise_and,
+    "bor": torch.bitwise_or,
+}
+
+_HOST_REDUCEAT = {
+    "min": np.minimum,
+    "max": np.maximum,
+    "band": np.bitwise_and,
+    "bor": np.bitwise_or,
 }
 
 
@@ -50,6 +64,13 @@ def _grouped_reduce(arr, mask, group_ids, num_groups, op):
     return direct_group_reduce(arr, mask, group_ids, num_groups, op)
 
 
+def _pair_take(op: str, ay, ax, by, bx):
+    """Lexicographic (ordering, payload) select: does (by, bx) win over (ay, ax)?"""
+    if op == "min":
+        return (by < ay) | ((by == ay) & (bx < ax))
+    return (by > ay) | ((by == ay) & (bx < ax))
+
+
 @dataclasses.dataclass
 class BoundAggregate:
     """One aggregate call bound to its input columns and result type.
@@ -57,6 +78,8 @@ class BoundAggregate:
     ``raw_inputs(values, mask)`` maps the argument columns (a tuple, empty for
     count(*)) to one tensor per accumulator; combined with per-accumulator
     reduction ops this yields raw-input updates and merges uniformly.
+    ``pairs`` marks (ordering_idx, payload_idx, op) accumulator pairs that
+    combine lexicographically instead of element-wise.
     """
 
     name: str
@@ -69,11 +92,35 @@ class BoundAggregate:
     # Optional renormalization applied after every combine (e.g. carry the
     # low-limb overflow of wide sums into the high limb).
     post_combine: Optional[Callable] = None
-    # Lexicographic accumulator pairs (min_by / max_by); none are ported yet.
+    # Lexicographic accumulator pairs: (ordering acc idx, payload acc idx, op).
     pairs: Tuple[Tuple[int, int, str], ...] = ()
     # Per-argument roles for string handling: 'value' (output as-is, keep the
     # dictionary), 'order' (needs rank order), 'order+value' (both), 'plain'.
     arg_roles: Tuple[str, ...] = ()
+
+    def _paired_payloads(self):
+        return {j for _, j, _ in self.pairs}
+
+    def _pair_of(self, i):
+        for y, x, op in self.pairs:
+            if y == i:
+                return (y, x, op)
+        return None
+
+    def _per_acc(self, plain, paired):
+        """Apply ``plain(i, op)`` to every element-wise accumulator and
+        ``paired(y, x, op)`` (returning two) to every lexicographic pair;
+        returns the accumulator tuple in order."""
+        out = [None] * len(self.acc_ops)
+        payloads = self._paired_payloads()
+        for i, op in enumerate(self.acc_ops):
+            pair = self._pair_of(i)
+            if pair is not None:
+                y, x, pop = pair
+                out[y], out[x] = paired(y, x, pop)
+            elif i not in payloads:
+                out[i] = plain(i, op)
+        return tuple(out)
 
     def acc_init(self, num_groups: int, device=None) -> Tuple[torch.Tensor, ...]:
         return tuple(
@@ -82,23 +129,14 @@ class BoundAggregate:
         )
 
     def _combine_states(self, accs, news):
-        """Combine two aligned accumulator tuples."""
-        result = tuple(
-            _COMBINE[op](a, n) for op, a, n in zip(self.acc_ops, accs, news)
-        )
-        return self.post_combine(result) if self.post_combine else result
+        """Combine two aligned accumulator tuples respecting pairs."""
 
-    def update(self, accs, values, mask, group_ids, num_groups):
-        """Add raw input rows (reference: Aggregate::addRawInput)."""
-        arrays = [
-            arr.to(dt)
-            for arr, dt in zip(self.raw_inputs(values, mask), self.acc_dtypes)
-        ]
-        news = tuple(
-            _grouped_reduce(arr, mask, group_ids, num_groups, op)
-            for arr, op in zip(arrays, self.acc_ops)
-        )
-        return self._combine_states(accs, news)
+        def paired(y, x, op):
+            take = _pair_take(op, accs[y], accs[x], news[y], news[x])
+            return torch.where(take, news[y], accs[y]), torch.where(take, news[x], accs[x])
+
+        result = self._per_acc(lambda i, op: _COMBINE[op](accs[i], news[i]), paired)
+        return self.post_combine(result) if self.post_combine else result
 
     def _masked(self, arrays, mask):
         """Raw inputs cast to the accumulator dtypes, dead rows at identity."""
@@ -110,19 +148,39 @@ class BoundAggregate:
             )
         return out
 
+    def update(self, accs, values, mask, group_ids, num_groups):
+        """Add raw input rows (reference: Aggregate::addRawInput)."""
+        arrays = self._masked(self.raw_inputs(values, mask), mask)
+
+        def paired(y, x, op):
+            if num_groups == 1:
+                ry, rx = masked_reduce_pair(arrays[y], arrays[x], mask, op)
+                return ry.reshape(1), rx.reshape(1)
+            return direct_group_reduce_pair(
+                arrays[y], arrays[x], mask, group_ids, num_groups, op
+            )
+
+        news = self._per_acc(
+            lambda i, op: _grouped_reduce(arrays[i], mask, group_ids, num_groups, op),
+            paired,
+        )
+        return self._combine_states(accs, news)
+
     def run_reduce(self, values, mask, runs: SortedRuns):
         """Per-run reductions for sort-mode grouping: tuple of [capacity]
         tensors where slot r is run r's partial accumulator."""
         arrays = self._masked(self.raw_inputs(values, mask), mask)
-        return tuple(
-            runs.reduce(arr, mask, op) for arr, op in zip(arrays, self.acc_ops)
+        return self._per_acc(
+            lambda i, op: runs.reduce(arrays[i], mask, op),
+            lambda y, x, op: runs.reduce_pair(arrays[y], arrays[x], mask, op),
         )
 
     def merge_runs(self, acc_arrays, valid, runs: SortedRuns):
         """Merge already-partial accumulator rows grouped into runs (device
         sorted-carry merge path)."""
-        result = tuple(
-            runs.reduce(arr, valid, op) for arr, op in zip(acc_arrays, self.acc_ops)
+        result = self._per_acc(
+            lambda i, op: runs.reduce(acc_arrays[i], valid, op),
+            lambda y, x, op: runs.reduce_pair(acc_arrays[y], acc_arrays[x], valid, op),
         )
         return self.post_combine(result) if self.post_combine else result
 
@@ -133,21 +191,29 @@ class BoundAggregate:
     def host_merge_sorted(self, acc_arrays, starts):
         """Merge group-sorted host partial rows (numpy arrays) into per-group
         accumulators; ``starts`` marks each group's first row."""
-        out = []
-        for arr, op in zip(acc_arrays, self.acc_ops):
+        n = len(acc_arrays[0])
+        lengths = np.diff(np.append(starts, n))
+        gids = np.repeat(np.arange(len(starts)), lengths)
+
+        def paired(y, x, op):
+            ya, xa = acc_arrays[y], acc_arrays[x]
+            yk = -ya if op == "max" else ya
+            perm = np.lexsort((xa, yk, gids))
+            return ya[perm][starts], xa[perm][starts]
+
+        def plain(i, op):
+            arr = acc_arrays[i]
             if len(starts) == 0:
-                out.append(arr[:0])
-            elif op == "sum":
+                return arr[:0]
+            if op == "sum":
                 if self.post_combine is not None:
                     # wide-limb sums: merge in python-int space so the lo
                     # limb cannot wrap across many tiles
                     arr = arr.astype(object)
-                out.append(np.add.reduceat(arr, starts))
-            elif op == "min":
-                out.append(np.minimum.reduceat(arr, starts))
-            else:
-                out.append(np.maximum.reduceat(arr, starts))
-        return tuple(out)
+                return np.add.reduceat(arr, starts)
+            return _HOST_REDUCEAT[op].reduceat(arr, starts)
+
+        return self._per_acc(plain, paired)
 
     def extract(self, accs):
         return self.extract_fn(accs)
@@ -216,6 +282,38 @@ def _wide_sum_extract(accs):
     return values, count > 0
 
 
+def _to_float(values: torch.Tensor, t: DataType) -> torch.Tensor:
+    v = values.to(torch.float64)
+    if t.kind == TypeKind.DECIMAL and t.scale:
+        v = v / (10.0 ** t.scale)
+    return v
+
+
+# ---- hash mixing for checksum ------------------------------------------------
+
+_U64 = 1 << 64
+
+
+def _signed(c: int) -> int:
+    """A 64-bit constant as the int64 torch computes with."""
+    return c - _U64 if c >= 1 << 63 else c
+
+
+def _shr_logical(x: torch.Tensor, k: int) -> torch.Tensor:
+    """uint64 ``x >> k`` on int64 lanes (torch has no uint64 arithmetic)."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _splitmix64(v: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer over int64 lanes (wrapping arithmetic): the same
+    bits as the JAX package's uint64 version, since two's-complement adds and
+    multiplies wrap alike."""
+    x = v.to(torch.int64) + _signed(0x9E3779B97F4A7C15)
+    x = (x ^ _shr_logical(x, 30)) * _signed(0xBF58476D1CE4E5B9)
+    x = (x ^ _shr_logical(x, 27)) * _signed(0x94D049BB133111EB)
+    return x ^ _shr_logical(x, 31)
+
+
 def narrow_int_sum(result_type: DataType, input_index=None) -> BoundAggregate:
     """Single-accumulator exact integer sum, valid when the planner proves
     |sum| < 2^62 from column bounds x capacity (runner.AggExecutor).  Same
@@ -243,6 +341,69 @@ def narrow_int_avg(scale: int, input_index=None) -> BoundAggregate:
         lambda values, mask: (values[0].to(torch.int64), _ones_like(values[0])),
         extract, input_index, arg_roles=("plain",),
     )
+
+
+def _value_and_count(values, mask):
+    return (values[0], _ones_like(values[0]))
+
+
+def _int_and_count(values, mask):
+    return (values[0].to(torch.int64), _ones_like(mask))
+
+
+def _value_if_counted(accs):
+    return (accs[0], accs[1] > 0)
+
+
+def _variance_extract(pop: bool, sqrt: bool):
+    def extract(accs):
+        n, s, ss = (np.asarray(a) for a in accs)
+        nf = np.maximum(n, 1).astype(np.float64)
+        m2 = np.maximum(ss - (s * s) / nf, 0.0)
+        denom = nf if pop else np.maximum(nf - 1.0, 1.0)
+        out = m2 / denom
+        if sqrt:
+            out = np.sqrt(out)
+        valid = (n >= 1) if pop else (n >= 2)
+        return out, valid
+
+    return extract
+
+
+def _moments_extract(name: str):
+    def extract(accs):
+        n, s1, s2, s3, s4 = (np.asarray(a) for a in accs)
+        nf = np.maximum(n, 1).astype(np.float64)
+        mean = s1 / nf
+        m2 = s2 - nf * mean**2
+        m3 = s3 - 3 * mean * s2 + 2 * nf * mean**3
+        m4 = s4 - 4 * mean * s3 + 6 * mean**2 * s2 - 3 * nf * mean**4
+        valid = (n >= 2) & (m2 > 0)
+        if name == "skewness":
+            denom = np.where(m2 > 0, np.sqrt(np.maximum(m2, 1e-300)) ** 3, 1.0)
+            return np.sqrt(nf) * m3 / denom, valid
+        denom = np.where(m2 > 0, m2 * m2, 1.0)
+        return nf * m4 / denom - 3.0, valid
+
+    return extract
+
+
+def _covariance_extract(name: str):
+    def extract(accs):
+        n, sx, sy, sxy, sxx, syy = (np.asarray(a) for a in accs)
+        nf = np.maximum(n, 1).astype(np.float64)
+        cxy = sxy - sx * sy / nf
+        if name == "corr":
+            vx = np.maximum(sxx - sx * sx / nf, 0.0)
+            vy = np.maximum(syy - sy * sy / nf, 0.0)
+            denom = np.sqrt(vx * vy)
+            out = np.where(denom > 0, cxy / np.where(denom > 0, denom, 1.0), np.nan)
+            return out, (n >= 2) & (denom > 0)
+        if name == "covar_pop":
+            return cxy / nf, n >= 1
+        return cxy / np.maximum(nf - 1.0, 1.0), n >= 2
+
+    return extract
 
 
 def bind_aggregate(
@@ -274,12 +435,29 @@ def bind_aggregate(
     t0 = types[0]
     at = _acc_dtype(t0)
 
+    if name == "count_if":
+        return BoundAggregate(
+            "count_if", BIGINT, (torch.int64,), ("sum",),
+            lambda values, mask: (values[0].to(torch.int64),),
+            lambda accs: (accs[0], None),
+            input_index, arg_roles=("plain",),
+        )
+
+    if name in ("bool_and", "every", "bool_or"):
+        op = "min" if name in ("bool_and", "every") else "max"
+        return BoundAggregate(
+            name, BOOLEAN, (torch.int64, torch.int64), (op, "sum"),
+            _int_and_count,
+            lambda accs: (accs[0].astype(np.bool_), accs[1] > 0),
+            input_index, arg_roles=("plain",),
+        )
+
     if name == "sum":
         if at == torch.float64:
             return BoundAggregate(
                 "sum", _sum_result_type(t0), (at, torch.int64), ("sum", "sum"),
-                lambda values, mask: (values[0], _ones_like(values[0])),
-                lambda accs: (accs[0], accs[1] > 0),  # sum of zero rows is NULL
+                _value_and_count,
+                _value_if_counted,  # sum of zero rows is NULL
                 input_index, arg_roles=("plain",),
             )
         return BoundAggregate(
@@ -295,40 +473,152 @@ def bind_aggregate(
     if name in ("min", "max"):
         return BoundAggregate(
             name, t0, (at, torch.int64), (name, "sum"),
-            lambda values, mask: (values[0], _ones_like(values[0])),
-            lambda accs: (accs[0], accs[1] > 0),
+            _value_and_count, _value_if_counted,
             input_index, arg_roles=("order+value",),
         )
 
-    # avg
-    scale = t0.scale if t0.kind == TypeKind.DECIMAL else 0
+    if name == "arbitrary":
+        # deterministic "any value": the smallest (reference returns the first
+        # seen, which is thread-schedule-dependent; smallest is reproducible)
+        return BoundAggregate(
+            "arbitrary", t0, (at, torch.int64), ("min", "sum"),
+            _value_and_count, _value_if_counted,
+            input_index, arg_roles=("value",),
+        )
 
-    if at == torch.float64:
-        def extract(accs):
-            total, count = accs
-            value = total.astype(np.float64) / np.maximum(count, 1)
+    if name in ("min_by", "max_by"):
+        assert len(types) == 2, f"{name} takes (value, ordering)"
+        op = "min" if name == "min_by" else "max"
+
+        def raw(values, mask):
+            # ordering first (the pair's primary)
+            return (values[1], values[0], _ones_like(mask))
+
+        return BoundAggregate(
+            name, t0, (_acc_dtype(types[1]), at, torch.int64), (op, op, "sum"),
+            raw,
+            lambda accs: (accs[1], accs[2] > 0),
+            input_index,
+            pairs=((0, 1, op),),
+            arg_roles=("value", "order"),
+        )
+
+    if name == "avg":
+        if at == torch.float64:
+            def extract(accs):
+                total, count = accs
+                value = total.astype(np.float64) / np.maximum(count, 1)
+                return value, count > 0
+
+            return BoundAggregate(
+                "avg", DOUBLE, (at, torch.int64), ("sum", "sum"),
+                _value_and_count, extract, input_index, arg_roles=("plain",),
+            )
+
+        scale = t0.scale if t0.kind == TypeKind.DECIMAL else 0
+
+        def extract_int(accs):
+            exact = _wide_exact(accs[0], accs[1])
+            count = np.asarray(accs[2])
+            safe = np.maximum(count, 1)
+            value = (exact / safe).astype(np.float64) / (10.0**scale)
             return value, count > 0
 
         return BoundAggregate(
-            "avg", DOUBLE, (at, torch.int64), ("sum", "sum"),
-            lambda values, mask: (values[0], _ones_like(values[0])),
-            extract, input_index, arg_roles=("plain",),
+            "avg", DOUBLE, (torch.int64, torch.int64, torch.int64), ("sum", "sum", "sum"),
+            _wide_raw_inputs,
+            extract_int, input_index,
+            post_combine=_wide_normalize,
+            arg_roles=("plain",),
         )
 
-    def extract_int(accs):
-        exact = _wide_exact(accs[0], accs[1])
-        count = np.asarray(accs[2])
-        safe = np.maximum(count, 1)
-        value = (exact / safe).astype(np.float64) / (10.0**scale)
-        return value, count > 0
+    if name in _VARIANCE:
+        def raw(values, mask, _t=t0):
+            v = _to_float(values[0], _t)
+            return (_ones_like(v), v, v * v)
+
+        return BoundAggregate(
+            name, DOUBLE, (torch.int64, torch.float64, torch.float64),
+            ("sum", "sum", "sum"),
+            raw, _variance_extract(name.endswith("_pop"), name.startswith("stddev")),
+            input_index, arg_roles=("plain",),
+        )
+
+    if name == "geometric_mean":
+        def raw(values, mask, _t=t0):
+            v = _to_float(values[0], _t)
+            return (torch.log(v), _ones_like(v))
+
+        def extract(accs):
+            s, n = (np.asarray(a) for a in accs)
+            return np.exp(s / np.maximum(n, 1)), n > 0
+
+        return BoundAggregate(
+            "geometric_mean", DOUBLE, (torch.float64, torch.int64), ("sum", "sum"),
+            raw, extract, input_index, arg_roles=("plain",),
+        )
+
+    if name in ("bitwise_and_agg", "bitwise_or_agg"):
+        # reference: prestosql/aggregates/BitwiseAggregates.cpp
+        op = "band" if name == "bitwise_and_agg" else "bor"
+        return BoundAggregate(
+            name, t0, (torch.int64, torch.int64), (op, "sum"),
+            _int_and_count, _value_if_counted,
+            input_index, arg_roles=("plain",),
+        )
+
+    if name == "checksum":
+        # order-independent content hash: wrapping int64 sum of per-row
+        # splitmix64 hashes (reference: ChecksumAggregate.h uses xxhash64 the
+        # same way; null rows are excluded here rather than hashed)
+        return BoundAggregate(
+            "checksum", BIGINT, (torch.int64,), ("sum",),
+            lambda values, mask: (_splitmix64(values[0]),),
+            lambda accs: (accs[0], None),
+            input_index, arg_roles=("plain",),
+        )
+
+    if name in ("skewness", "kurtosis"):
+        # central moments from raw power sums (reference: velox/functions/
+        # prestosql/aggregates/CentralMomentsAggregates.cpp; Presto semantics)
+        def raw(values, mask, _t=t0):
+            v = _to_float(values[0], _t)
+            return (_ones_like(v), v, v * v, v * v * v, v * v * v * v)
+
+        return BoundAggregate(
+            name, DOUBLE,
+            (torch.int64,) + (torch.float64,) * 4,
+            ("sum",) * 5,
+            raw, _moments_extract(name), input_index, arg_roles=("plain",),
+        )
+
+    # covar_pop / covar_samp / corr
+    assert len(types) == 2, f"{name} takes two arguments"
+
+    def raw_xy(values, mask, _tx=types[0], _ty=types[1]):
+        x = _to_float(values[0], _tx)
+        y = _to_float(values[1], _ty)
+        return (_ones_like(x), x, y, x * y, x * x, y * y)
 
     return BoundAggregate(
-        "avg", DOUBLE, (torch.int64, torch.int64, torch.int64), ("sum", "sum", "sum"),
-        _wide_raw_inputs,
-        extract_int, input_index,
-        post_combine=_wide_normalize,
-        arg_roles=("plain",),
+        name, DOUBLE,
+        (torch.int64,) + (torch.float64,) * 5,
+        ("sum",) * 6,
+        raw_xy, _covariance_extract(name), input_index, arg_roles=("plain", "plain"),
     )
 
 
-AGGREGATE_NAMES = ("count", "sum", "min", "max", "avg")
+_VARIANCE = (
+    "variance", "var_samp", "var_pop", "stddev", "stddev_samp", "stddev_pop",
+)
+
+# The JAX package's names (velox_tpu/exec/aggregates.py AGGREGATE_NAMES) but
+# approx_distinct and bloom_filter_agg (the sketch slice) and the collect
+# aggregates (the complex-types slice); binding one of those raises KeyError.
+AGGREGATE_NAMES = (
+    "count", "count_if", "sum", "min", "max", "avg", "arbitrary",
+    "bool_and", "bool_or", "every", "min_by", "max_by",
+) + _VARIANCE + (
+    "geometric_mean", "checksum", "covar_pop", "covar_samp", "corr",
+    "skewness", "kurtosis", "bitwise_and_agg", "bitwise_or_agg",
+)

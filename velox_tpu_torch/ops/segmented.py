@@ -19,10 +19,11 @@ a gather or one scatter into run slots:
   dead rows may sit inside or between runs (the fused join probe emits such
   batches).
 * ``SortedRuns`` — the run structure of one sorted tile, built once and reused
-  for every accumulator: ``reduce`` (sum / min / max), ``first``,
+  for every accumulator: ``reduce`` (sum / min / max / band / bor),
+  ``reduce_pair``, ``first``,
   ``start_positions``, ``run_mask``.
 * ``segmented_scan`` — inclusive scan that resets at segment starts (sum,
-  min, max, first: the window functions' running frames).
+  min, max, first: the window functions' running frames; band, bor).
 * ``last_flagged`` / ``next_flagged`` — the value at the last flagged row at
   or before each row (the next one at or after it): the propagation the
   reference writes as a running maximum (``lax.cummax``), built here from a
@@ -39,9 +40,14 @@ Index tensors (``run_index``, ``end_positions``, ``start_positions``) are int64,
 the dtype torch indexes with; the JAX package holds them as int32.  Gathers
 clamp their indices explicitly (``jnp.take(..., mode="clip")`` there).
 
-Not ported yet (each raises ``NotImplementedError`` by name): the bitwise ops
-``band`` / ``bor`` and lexicographic pairs (``reduce_pair``,
-``segmented_scan_pair``).
+The bitwise ops ``band`` / ``bor`` have no torch reduction: over one range
+they fold by halving, per group and per run they are a log-step segmented
+scan (Hillis-Steele) taken at each run's last row.  Lexicographic
+(ordering, payload) pairs (min_by / max_by): ``masked_reduce_pair`` and
+``direct_group_reduce_pair`` take the extreme ordering and then the smallest
+payload among its rows; ``segmented_scan_pair`` is the log-step scan of the
+same combine (``_pair_wins``: ties go to the smaller payload), which
+``SortedRuns.reduce_pair`` takes at each run's end.
 
 Reference counterpart: velox/exec/HashTable.h kArray mode for the direct
 half, velox/exec/StreamingAggregation.h for the run half.
@@ -76,6 +82,23 @@ def _with_identity(values: torch.Tensor, mask: torch.Tensor, op: str) -> torch.T
     return torch.where(mask, values, torch.full_like(values, ident))
 
 
+_BITWISE = {"band": torch.bitwise_and, "bor": torch.bitwise_or}
+
+
+def _fold_bitwise(v: torch.Tensor, op: str) -> torch.Tensor:
+    """band / bor of a 1-D tensor: pad to a power of two with the identity
+    and fold the upper half onto the lower until one element is left."""
+    n = v.shape[0]
+    size = 1 << max(n - 1, 0).bit_length()
+    if size != n:
+        pad = torch.full((size - n,), identity_for(op, v.dtype), dtype=v.dtype, device=v.device)
+        v = torch.cat([v, pad])
+    while v.shape[0] > 1:
+        half = v.shape[0] // 2
+        v = _BITWISE[op](v[:half], v[half:])
+    return v[0]
+
+
 def masked_reduce(values: torch.Tensor, mask: torch.Tensor, op: str) -> torch.Tensor:
     v = _with_identity(values, mask, op)
     if op == "sum":
@@ -84,6 +107,8 @@ def masked_reduce(values: torch.Tensor, mask: torch.Tensor, op: str) -> torch.Te
         return v.amin()
     if op == "max":
         return v.amax()
+    if op in _BITWISE:
+        return _fold_bitwise(v, op)
     raise NotImplementedError(f"masked_reduce op {op!r} is not ported yet")
 
 
@@ -108,7 +133,54 @@ def direct_group_reduce(
         return out.index_add_(0, index, v)
     if op in _SCATTER:
         return out.scatter_reduce_(0, index, v, _SCATTER[op], include_self=True)
+    if op in _BITWISE:
+        # no bitwise scatter: sort by group (dead rows after the last one),
+        # scan each group's run and read its last row
+        key = torch.where(live, gid, torch.full_like(gid, num_groups))
+        sorted_gid, order = torch.sort(key, stable=True)
+        boundary = sorted_gid != _shift_in(-1, sorted_gid)
+        scanned = segmented_scan(v.index_select(0, order), boundary, op)
+        groups = torch.arange(num_groups, dtype=torch.int64, device=v.device)
+        last = torch.searchsorted(sorted_gid, groups, right=True) - 1
+        present = (last >= 0) & (_take(sorted_gid, last) == groups)
+        return torch.where(present, _take(scanned, last), out)
     raise NotImplementedError(f"direct_group_reduce op {op!r} is not ported yet")
+
+
+def _pair_wins(op: str, ay, ax, by, bx):
+    """Lexicographic (ordering, payload): does (b) replace (a)?  Ties go to the
+    smaller payload so results are deterministic."""
+    if op == "min":
+        return (by < ay) | ((by == ay) & (bx < ax))
+    return (by > ay) | ((by == ay) & (bx < ax))
+
+
+def masked_reduce_pair(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, op: str):
+    """Ungrouped argmin/argmax: (ordering, payload) of the lexicographic extreme."""
+    ym = _with_identity(y, mask, op)
+    best_y = ym.amin() if op == "min" else ym.amax()
+    at_best = mask & (y == best_y)
+    best_x = _with_identity(x, at_best, "min").amin()
+    return best_y, best_x
+
+
+def direct_group_reduce_pair(
+    y: torch.Tensor,
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    gids: torch.Tensor,
+    num_groups: int,
+    op: str,
+):
+    """[num_groups] argmin/argmax over (ordering y, payload x) pairs: the
+    extreme ordering per group, then the smallest payload among its rows."""
+    gid = gids.to(torch.int64)
+    live = mask & (gid >= 0) & (gid < num_groups)
+    index = torch.where(live, gid, torch.zeros_like(gid))
+    best_y = direct_group_reduce(y, live, index, num_groups, op)
+    at_best = live & (y == _take(best_y, index))
+    best_x = direct_group_reduce(x, at_best, index, num_groups, "min")
+    return best_y, best_x
 
 
 def direct_group_reduce_batch(
@@ -143,15 +215,42 @@ def _shift_in(first, rest: torch.Tensor) -> torch.Tensor:
     return torch.cat([head, rest[:-1]])
 
 
-def _not_ported(name: str):
-    def raiser(*args, **kwargs):
-        raise NotImplementedError(f"ops.segmented.{name} is not ported yet")
+def _log_step_scan(state, boundary: torch.Tensor, combine):
+    """Inclusive segmented scan of a tuple of [n] tensors in log2(n) steps
+    (Hillis-Steele): at step d every row combines the state d rows back
+    unless a segment starts in between.  ``combine(a, b)`` merges the earlier
+    state ``a`` into the later ``b`` and returns the new state tuple."""
+    n = boundary.shape[0]
+    state = tuple(state)
+    flag = boundary.clone()
+    d = 1
+    while d < n:
+        prev = tuple(t[:-d] for t in state)
+        cur = tuple(t[d:] for t in state)
+        merged = combine(prev, cur)
+        head = flag[d:]
+        state = tuple(
+            torch.cat([t[:d], torch.where(head, c, m)])
+            for t, c, m in zip(state, cur, merged)
+        )
+        flag = torch.cat([flag[:d], head | flag[:-d]])
+        d *= 2
+    return state
 
-    raiser.__name__ = name
-    return raiser
 
+def segmented_scan_pair(
+    y: torch.Tensor, x: torch.Tensor, boundary: torch.Tensor, op: str
+):
+    """Inclusive lexicographic-extreme scan of (y, x) pairs, reset at
+    segments (the JAX package's associative scan of ``_pair_wins``)."""
 
-segmented_scan_pair = _not_ported("segmented_scan_pair")
+    def combine(a, b):
+        ay, ax = a
+        by, bx = b
+        win = _pair_wins(op, ay, ax, by, bx)
+        return torch.where(win, by, ay), torch.where(win, bx, ax)
+
+    return _log_step_scan((y, x), boundary, combine)
 
 _COMBINE = {"min": torch.minimum, "max": torch.maximum}
 
@@ -309,6 +408,9 @@ def segmented_scan(values: torch.Tensor, boundary: torch.Tensor, op: str) -> tor
             start > 0, _take(totals, start - 1), torch.zeros_like(totals)
         )
         return (totals - before).to(values.dtype)
+    if op in _BITWISE:
+        fn = _BITWISE[op]
+        return _log_step_scan((values,), boundary, lambda a, b: (fn(a[0], b[0]),))[0]
     if op not in _COMBINE:
         raise NotImplementedError(f"segmented_scan op {op!r} is not ported yet")
     table = sparse_table(values, op)
@@ -390,9 +492,17 @@ class SortedRuns:
         """[capacity] tensor: slot r = reduction of run r (slots >= num_runs
         are garbage; mask with run_mask()).
 
-        sum is a prefix sum and a difference at the run ends: exact for int64
-        (wrapping cancels), rounded like two prefix sums for float64."""
+        An integer sum is a prefix sum and a difference at the run ends
+        (exact: wrapping cancels); a float sum is a scatter-add of each run's
+        own rows (the JAX package takes prefix-sum differences there too)."""
         v = _with_identity(values, value_mask & self.mask, op)
+        if op == "sum" and v.dtype.is_floating_point:
+            # a float run sum adds only its own rows (one scatter-add into
+            # run slots), so its rounding scales with the run, not with the
+            # prefix before it: the power sums of a variance or kurtosis
+            # cancel, and a prefix-sum difference leaves them noise
+            gid = self.run_index.clamp(0, max(self.capacity - 1, 0))
+            return torch.zeros_like(v).index_add_(0, gid, v)
         if op == "sum":
             totals = torch.cumsum(v, 0)
             at_ends = _take(totals, self.end_positions)
@@ -403,9 +513,18 @@ class SortedRuns:
             gid = self.run_index.clamp(0, max(self.capacity - 1, 0))
             out = torch.full_like(v, identity_for(op, v.dtype))
             return out.scatter_reduce_(0, gid, v, _SCATTER[op], include_self=True)
+        if op in _BITWISE:
+            scanned = segmented_scan(v, self.boundary, op)
+            return _take(scanned, self.end_positions)
         raise NotImplementedError(f"SortedRuns.reduce op {op!r} is not ported yet")
 
-    reduce_pair = _not_ported("SortedRuns.reduce_pair")
+    def reduce_pair(self, y: torch.Tensor, x: torch.Tensor, value_mask: torch.Tensor, op: str):
+        """Per-run lexicographic extreme of (ordering y, payload x) pairs."""
+        alive = value_mask & self.mask
+        ys = _with_identity(y, alive, op)
+        xs = _with_identity(x, alive, "min")
+        sy, sx = segmented_scan_pair(ys, xs, self.boundary, op)
+        return _take(sy, self.end_positions), _take(sx, self.end_positions)
 
     def start_positions(self) -> torch.Tensor:
         """[capacity] int64: slot r = row index of run r's first element (a

@@ -107,3 +107,29 @@ def run_at_tile_sizes(plan, tile_sizes=(1 << 10, 1 << 14, 1 << 20), device=None)
     for other in results[1:]:
         pd.testing.assert_frame_equal(results[0], other)
     return results[0]
+
+
+def assert_same_rows(got, want, rtol: float = 1e-9, atol: float = 0.0):
+    """Two result Tables hold the same rows in the same order: same names,
+    type strings and NULLs; strings compared by value, floats to ``rtol``
+    (NaN equal to NaN), everything else exactly.  ``want`` may be a Table of
+    another engine with the same layout (schema, columns, validities,
+    string_tables)."""
+    assert list(got.schema.names) == list(want.schema.names)
+    assert [str(t) for t in got.schema.types] == [str(t) for t in want.schema.types]
+    assert got.num_rows == want.num_rows
+    for name, dtype in zip(want.schema.names, want.schema.types):
+        g, w = np.asarray(got.columns[name]), np.asarray(want.columns[name])
+        gv, wv = got.validities.get(name), want.validities.get(name)
+        gv = np.ones(len(g), bool) if gv is None else np.asarray(gv, bool)
+        wv = np.ones(len(w), bool) if wv is None else np.asarray(wv, bool)
+        np.testing.assert_array_equal(gv, wv, err_msg=f"{name}: NULLs")
+        g, w = g[wv], w[wv]
+        if dtype.is_string:
+            assert list(got.string_tables[name].decode(g)) == list(
+                want.string_tables[name].decode(w)
+            ), name
+        elif dtype.is_floating:
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, equal_nan=True, err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
