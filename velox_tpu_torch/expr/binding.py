@@ -14,9 +14,8 @@ are rewritten against the scan's string tables:
 
 This is valid because scan dictionaries are immutable for the life of a query.
 
-Binders whose host implementation lives in a module this package does not have
-yet (time zones, Spark bloom filters, Levenshtein distance, word stemming) are
-left out: such a call stays an unbound ``Call`` and raises by name when it is
+The Spark bloom-filter probe (``might_contain``) comes with the Spark slice:
+such a call stays an unbound ``Call`` and raises by name when it is
 evaluated.
 """
 
@@ -130,6 +129,23 @@ def _rewrite(expr: Expr, tables, context_table: Optional[StringTable]) -> Expr:
             code = context_table.lookup(expr.value)
             return Constant(expr.dtype, -1 if code is None else code)
         return expr
+    if (
+        isinstance(expr, Call)
+        and expr.name in _TZ_FNS
+        and expr.args
+        and isinstance(expr.args[-1], Constant)
+        and isinstance(expr.args[-1].value, str)
+    ):
+        # literal zone dispatch (reference: DateTimeFunctions.h zone lookup):
+        # the zone's TZif transition table bakes into a dedicated function
+        from ..functions.presto.tzfuncs import register_zone_fn
+
+        zone = expr.args[-1].value
+        rest = tuple(_rewrite(a, tables, context_table) for a in expr.args[:-1])
+        if expr.name == "from_unixtime":
+            inner = Call(expr.dtype, "from_unixtime", rest)
+            return Call(expr.dtype, register_zone_fn("at", zone), (inner,))
+        return Call(expr.dtype, register_zone_fn(_TZ_FNS[expr.name], zone), rest)
     if isinstance(expr, Call) and expr.name == "array_join":
         # the separator / null-replacement literals must SURVIVE as strings:
         # the string-construction plan rewrite (not ported yet) renders the
@@ -371,6 +387,29 @@ def _bind_date_unit(prefix: str):
     return binder
 
 
+# timezone functions: name -> tzfuncs kind ('from_unixtime' composes with 'at')
+_TZ_FNS: Dict[str, Optional[str]] = {
+    "at_timezone": "at",
+    "to_utc": "to_utc",
+    "timezone_hour": "hour",
+    "timezone_minute": "minute",
+    "from_unixtime": None,
+}
+
+
+def _levenshtein(a: str, b: str) -> int:
+    """Edit distance (a copy of the JAX package's Spark ``_levenshtein``)."""
+    if len(a) < len(b):
+        a, b = b, a
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb)))
+        prev = cur
+    return prev[-1]
+
+
 _BOOLEAN = BOOLEAN
 
 _STRING_FN_BINDERS: Dict[str, Callable] = {
@@ -390,6 +429,9 @@ _STRING_FN_BINDERS: Dict[str, Callable] = {
     "concat": _literal_args_fn(None, None, _concat_impl, makes_strings=True),
     "strpos": _literal_args_fn(
         BIGINT, np.int64, lambda v, _ci, sub: v.find(sub) + 1
+    ),
+    "levenshtein_distance": _literal_args_fn(
+        BIGINT, np.int64, lambda v, _ci, other: _levenshtein(v, other)
     ),
     "strrpos": _literal_args_fn(
         BIGINT, np.int64, lambda v, _ci, sub: v.rfind(sub) + 1
@@ -458,6 +500,8 @@ _PAIR_IMPLS = {
     "concat": (lambda a, b: a + b, None, None, True),
     "strrpos": (lambda a, b: a.rfind(b) + 1, BIGINT, np.int64, False),
     "hamming_distance": (None, BIGINT, np.int64, False),
+    "levenshtein": (_levenshtein, BIGINT, np.int64, False),
+    "levenshtein_distance": (_levenshtein, BIGINT, np.int64, False),
     "strpos": (lambda a, b: a.find(b) + 1, BIGINT, np.int64, False),
     "instr": (lambda a, b: a.find(b) + 1, BIGINT, np.int64, False),
     "starts_with": (lambda a, b: a.startswith(b), BOOLEAN, np.bool_, False),
@@ -639,6 +683,14 @@ def _url_part(which):
     return fn
 
 
+def _word_stem(v: str, _ci, lang: str = "en") -> str:
+    if lang not in ("en",):
+        raise ValueError(f"word_stem: unsupported language {lang!r}")
+    from ..utils.porter import porter_stem
+
+    return porter_stem(v)
+
+
 def _normalize_str(v: str, _ci, form: str = "NFC") -> str:
     import unicodedata
 
@@ -782,6 +834,9 @@ _STRING_FN_BINDERS.update(
         ),
         "normalize": _literal_args_fn(
             None, None, _normalize_str, makes_strings=True
+        ),
+        "word_stem": _literal_args_fn(
+            None, None, _word_stem, makes_strings=True
         ),
         # VARCHAR <-> VARBINARY casts share the dictionary representation
         # (reference: BinaryFunctions.h to_utf8 / from_utf8)
