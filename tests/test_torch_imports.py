@@ -25,6 +25,9 @@ import velox_tpu_torch.exec.sort, velox_tpu_torch.exec.grouping
 import velox_tpu_torch.utils.transfer
 import velox_tpu_torch.ops.segpool, velox_tpu_torch.sql.planner
 import velox_tpu_torch.testing
+import velox_tpu_torch.utils.tz, velox_tpu_torch.utils.porter
+import velox_tpu_torch.functions.presto.tzfuncs
+import velox_tpu_torch.ops.int128, velox_tpu_torch.exec.hugeint
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "velox_tpu" or m.startswith("velox_tpu.")

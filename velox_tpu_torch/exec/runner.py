@@ -88,6 +88,7 @@ from .aggregates import (
     narrow_int_sum,
 )
 from .grouping import MAX_ARRAY_GROUPS, ArrayGrouping, KeyInfo, SortGrouping, key_info
+from .hugeint import merge_result, rewrite_long_decimals
 from .window import WindowNode
 
 
@@ -1315,6 +1316,9 @@ class LocalExecutor:
             )
         self.pool = pool
         root = rewrite_filtered_existence_joins(root)
+        # long decimals become (hi, lo) limb columns and __i128_* calls; the
+        # result is re-packed into (n, 2) columns at the end of run()
+        root, self._hugeint_logical = rewrite_long_decimals(root)
         self.tile_rows = tile_rows
         self.build_seconds = 0.0
         # (output bucket, rows) of every expansion the build sides and
@@ -1670,6 +1674,8 @@ class LocalExecutor:
         else:
             result = self._run_collect(make_tiles, stats)
         result = apply_finishers(result, self.lin.finishers[skip_finishers:])
+        if self._hugeint_logical is not None:
+            result = merge_result(result, self._hugeint_logical)
         if stats is not None:
             stats.total_seconds = time.perf_counter() - t_start
         return result

@@ -174,12 +174,21 @@ class Table:
         out = {}
         for name, dtype in zip(self.schema.names, self.schema.types):
             arr = self.columns[name]
-            if dtype.is_complex or dtype.is_long_decimal:
-                raise NotImplementedError(
-                    "complex and long-decimal columns are not ported yet"
-                )
+            if dtype.is_complex:
+                raise NotImplementedError("complex columns are not ported yet")
             if decode and dtype.is_string and name in self.string_tables:
                 arr = self.string_tables[name].decode(arr)
+            elif decode and dtype.is_long_decimal:
+                from decimal import Context, Decimal
+
+                from ..ops.int128 import np_to_int
+
+                # 50-digit context: the default (28) would round 38-digit
+                # unscaled values during the scaleb
+                cx = Context(prec=50)
+                ints = np_to_int(arr[:, 1], arr[:, 0])
+                arr = np.empty(len(ints), dtype=object)
+                arr[:] = [Decimal(v).scaleb(-dtype.scale, cx) for v in ints]
             elif decode and dtype.kind == TypeKind.DECIMAL:
                 arr = arr.astype(np.float64) / 10.0**dtype.scale
             validity = self.validities.get(name)
