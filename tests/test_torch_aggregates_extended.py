@@ -8,14 +8,15 @@ Each aggregate runs ungrouped, grouped in array mode (a key of 7 values),
 grouped in sort mode over several tiles with the device carry merge, and
 with the host merge (``device_agg_merge=False``).  Integers and booleans
 agree exactly, DOUBLE to rtol 1e-9.  The statistical aggregates (variance,
-covariance, correlation, skewness, kurtosis) cancel: the JAX package's
-sort-mode float sums are prefix-sum differences, so where a group's result
-is near zero or its second moment small, the reference carries rounding
-error well past 1e-9 (3.5e-7 for the standard deviation of one row).  There
-a value of the port that is not within rtol 1e-9 of the reference must be at
-least as close as the reference to the exact value, computed with Python
-fractions from the same rows (``_exact_stat``).  The registry test holds the
-port's aggregate names to the reference's."""
+covariance, correlation, skewness, kurtosis) differ in algorithm: the JAX
+package keeps raw power sums and subtracts at the end, which cancels where a
+group's spread is small beside its mean (3.5e-7 of error in the standard
+deviation of one row); the port merges central moments
+(``exec/aggregates.py MomentAggregate``).  A value of the port that is not
+within rtol 1e-9 of the reference must be at least as close as the
+reference to the exact value, computed with Python fractions from the same
+rows (``_exact_stat``).  The registry test holds the port's aggregate names
+to the reference's."""
 
 import math
 import re
@@ -197,9 +198,9 @@ def test_aggregate_matches_reference(case, mode):
 
 def test_one_row_statistics_are_exact():
     """A one-row group's variance and standard deviation are 0 and a two-row
-    group's skewness is 0 in exact arithmetic; the port's run sums add only
-    the group's own rows, so it gives the first two exactly and the third
-    within rounding of the group's own values."""
+    group's skewness is 0 in exact arithmetic; the port's central moments
+    give the first two exactly and the third within rounding of the group's
+    own values."""
     ex, got, _ = _run_both(
         ["count(*) as n", "var_pop(w) as vp", "stddev_pop(w) as sd", "skewness(w) as sk"],
         ("g",), 256, False,

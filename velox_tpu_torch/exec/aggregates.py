@@ -27,6 +27,8 @@ merge order cannot change results; floating inputs accumulate in float64.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -230,6 +232,111 @@ class BoundAggregate:
         return len(self.arg_roles)
 
 
+@dataclasses.dataclass
+class MomentAggregate(BoundAggregate):
+    """A statistical aggregate kept as (count, sum of each variable, central
+    moments about the group's own mean) — the variance family, covariance,
+    correlation, skewness and kurtosis.
+
+    The JAX package keeps raw power sums (x, x^2, ...) and subtracts at the
+    end, which cancels where a group's spread is small beside its mean (two
+    line items of nearly the same price: the variance comes out with most
+    of its digits lost, or not zero for equal values).  Here every merge —
+    rows into a group, partial groups into a run, two states into one — is
+    the exact combination of central moments (Chan et al., Pebay): with
+    ``d`` the distance of a part's mean from the merged mean,
+
+        M_e = sum over parts of  sum over f <= e  C(e, f) * M_f(part) * d^(e - f)
+
+    (``M_0`` = the part's count, ``M_1`` = 0), two passes of segment sums:
+    the merged means first, then every moment.  Real values are the
+    reference's where it is accurate.
+
+    Accumulators: count (int64), one sum per variable, then one central
+    moment per exponent tuple of ``orders`` (each tuple names one power per
+    variable; every tuple of order 2 or more that a merge needs is itself in
+    ``orders``).  ``raw_inputs`` returns the variables as float64."""
+
+    orders: Tuple[Tuple[int, ...], ...] = ()
+
+    def _rows(self, values, mask):
+        """The per-row partial state: count 1, the values, moments 0."""
+        variables = self.raw_inputs(values, mask)
+        zero = torch.zeros_like(variables[0])
+        sums = tuple(torch.where(mask, v, zero) for v in variables)
+        return (mask.to(torch.int64),) + sums + (zero,) * len(self.orders)
+
+    def _merge(self, parts, total, spread, as_float, at_least_one):
+        """Merge parts into segments: ``total`` sums items into segments,
+        ``spread`` maps a segment's value back to its items."""
+        k = len(parts) - 1 - len(self.orders)
+        n, sums = parts[0], parts[1 : 1 + k]
+        moments = dict(zip(self.orders, parts[1 + k :]))
+        count = total(n)
+        seg_sums = [total(v) for v in sums]
+        nf = as_float(n)
+        own = at_least_one(nf)
+        merged = at_least_one(as_float(count))
+        deltas = [v / own - spread(t / merged) for v, t in zip(sums, seg_sums)]
+        out = [count, *seg_sums]
+        for e in self.orders:
+            acc = 0.0
+            for f in itertools.product(*(range(ev + 1) for ev in e)):
+                order = sum(f)
+                if order == 1:
+                    continue
+                term = nf if order == 0 else moments[f]
+                for ev, fv, d in zip(e, f, deltas):
+                    term = term * (math.comb(ev, fv) * d ** (ev - fv))
+                acc = acc + term
+            out.append(total(acc))
+        return tuple(out)
+
+    def _merge_torch(self, parts, total, spread):
+        return self._merge(
+            parts, total, spread, lambda t: t.to(torch.float64), lambda t: t.clamp(min=1.0)
+        )
+
+    def _combine_states(self, accs, news):
+        pairs = tuple(torch.stack([a, b]) for a, b in zip(accs, news))
+        return self._merge_torch(pairs, lambda t: t[0] + t[1], lambda t: t.unsqueeze(0))
+
+    def update(self, accs, values, mask, group_ids, num_groups):
+        rows = self._rows(values, mask)
+        gid = group_ids.to(torch.int64).clamp(0, num_groups - 1)
+        news = self._merge_torch(
+            rows,
+            lambda t: _grouped_reduce(t, mask, group_ids, num_groups, "sum"),
+            lambda t: t.index_select(0, gid),
+        )
+        return self._combine_states(accs, news)
+
+    def _merge_runs(self, parts, mask, runs: SortedRuns):
+        slot = runs.run_index.clamp(0, max(runs.capacity - 1, 0))
+        return self._merge_torch(
+            parts, lambda t: runs.reduce(t, mask, "sum"), lambda t: t.index_select(0, slot)
+        )
+
+    def run_reduce(self, values, mask, runs: SortedRuns):
+        return self._merge_runs(self._rows(values, mask), mask, runs)
+
+    def merge_runs(self, acc_arrays, valid, runs: SortedRuns):
+        return self._merge_runs(tuple(acc_arrays), valid, runs)
+
+    def host_merge_sorted(self, acc_arrays, starts):
+        n = len(acc_arrays[0])
+        if len(starts) == 0:
+            return tuple(a[:0] for a in acc_arrays)
+        lengths = np.diff(np.append(starts, n))
+        return self._merge(
+            tuple(np.asarray(a) for a in acc_arrays),
+            lambda t: np.add.reduceat(np.broadcast_to(t, (n,)), starts),
+            lambda t: np.repeat(t, lengths),
+            lambda t: t.astype(np.float64),
+            lambda t: np.maximum(t, 1.0),
+        )
+
+
 def _sum_result_type(t: DataType) -> DataType:
     if t.kind == TypeKind.DECIMAL:
         return decimal(38 if t.is_long_decimal else 18, t.scale)
@@ -357,11 +464,10 @@ def _value_if_counted(accs):
 
 def _variance_extract(pop: bool, sqrt: bool):
     def extract(accs):
-        n, s, ss = (np.asarray(a) for a in accs)
+        n, _, m2 = (np.asarray(a) for a in accs)
         nf = np.maximum(n, 1).astype(np.float64)
-        m2 = np.maximum(ss - (s * s) / nf, 0.0)
         denom = nf if pop else np.maximum(nf - 1.0, 1.0)
-        out = m2 / denom
+        out = np.maximum(m2, 0.0) / denom
         if sqrt:
             out = np.sqrt(out)
         valid = (n >= 1) if pop else (n >= 2)
@@ -372,12 +478,8 @@ def _variance_extract(pop: bool, sqrt: bool):
 
 def _moments_extract(name: str):
     def extract(accs):
-        n, s1, s2, s3, s4 = (np.asarray(a) for a in accs)
+        n, _, m2, m3, m4 = (np.asarray(a) for a in accs)
         nf = np.maximum(n, 1).astype(np.float64)
-        mean = s1 / nf
-        m2 = s2 - nf * mean**2
-        m3 = s3 - 3 * mean * s2 + 2 * nf * mean**3
-        m4 = s4 - 4 * mean * s3 + 6 * mean**2 * s2 - 3 * nf * mean**4
         valid = (n >= 2) & (m2 > 0)
         if name == "skewness":
             denom = np.where(m2 > 0, np.sqrt(np.maximum(m2, 1e-300)) ** 3, 1.0)
@@ -390,13 +492,10 @@ def _moments_extract(name: str):
 
 def _covariance_extract(name: str):
     def extract(accs):
-        n, sx, sy, sxy, sxx, syy = (np.asarray(a) for a in accs)
+        n, _, _, cxy, vx, vy = (np.asarray(a) for a in accs)
         nf = np.maximum(n, 1).astype(np.float64)
-        cxy = sxy - sx * sy / nf
         if name == "corr":
-            vx = np.maximum(sxx - sx * sx / nf, 0.0)
-            vy = np.maximum(syy - sy * sy / nf, 0.0)
-            denom = np.sqrt(vx * vy)
+            denom = np.sqrt(np.maximum(vx, 0.0) * np.maximum(vy, 0.0))
             out = np.where(denom > 0, cxy / np.where(denom > 0, denom, 1.0), np.nan)
             return out, (n >= 2) & (denom > 0)
         if name == "covar_pop":
@@ -533,15 +632,12 @@ def bind_aggregate(
         )
 
     if name in _VARIANCE:
-        def raw(values, mask, _t=t0):
-            v = _to_float(values[0], _t)
-            return (_ones_like(v), v, v * v)
-
-        return BoundAggregate(
+        return MomentAggregate(
             name, DOUBLE, (torch.int64, torch.float64, torch.float64),
             ("sum", "sum", "sum"),
-            raw, _variance_extract(name.endswith("_pop"), name.startswith("stddev")),
-            input_index, arg_roles=("plain",),
+            lambda values, mask, _t=t0: (_to_float(values[0], _t),),
+            _variance_extract(name.endswith("_pop"), name.startswith("stddev")),
+            input_index, arg_roles=("plain",), orders=((2,),),
         )
 
     if name == "geometric_mean":
@@ -579,32 +675,28 @@ def bind_aggregate(
         )
 
     if name in ("skewness", "kurtosis"):
-        # central moments from raw power sums (reference: velox/functions/
-        # prestosql/aggregates/CentralMomentsAggregates.cpp; Presto semantics)
-        def raw(values, mask, _t=t0):
-            v = _to_float(values[0], _t)
-            return (_ones_like(v), v, v * v, v * v * v, v * v * v * v)
-
-        return BoundAggregate(
+        # reference: velox/functions/prestosql/aggregates/
+        # CentralMomentsAggregates.cpp; Presto semantics
+        return MomentAggregate(
             name, DOUBLE,
             (torch.int64,) + (torch.float64,) * 4,
             ("sum",) * 5,
-            raw, _moments_extract(name), input_index, arg_roles=("plain",),
+            lambda values, mask, _t=t0: (_to_float(values[0], _t),),
+            _moments_extract(name), input_index, arg_roles=("plain",),
+            orders=((2,), (3,), (4,)),
         )
 
     # covar_pop / covar_samp / corr
     assert len(types) == 2, f"{name} takes two arguments"
-
-    def raw_xy(values, mask, _tx=types[0], _ty=types[1]):
-        x = _to_float(values[0], _tx)
-        y = _to_float(values[1], _ty)
-        return (_ones_like(x), x, y, x * y, x * x, y * y)
-
-    return BoundAggregate(
+    return MomentAggregate(
         name, DOUBLE,
         (torch.int64,) + (torch.float64,) * 5,
         ("sum",) * 6,
-        raw_xy, _covariance_extract(name), input_index, arg_roles=("plain", "plain"),
+        lambda values, mask, _tx=types[0], _ty=types[1]: (
+            _to_float(values[0], _tx), _to_float(values[1], _ty),
+        ),
+        _covariance_extract(name), input_index, arg_roles=("plain", "plain"),
+        orders=((1, 1), (2, 0), (0, 2)),
     )
 
 
