@@ -69,7 +69,17 @@ data is the same in every run.  The script
    window passes, the device's peak memory and ``query_ms`` (the whole query
    from host tables) beside its device time; none of them launches a
    hand-written kernel;
-10. prints a ``summary`` line (every query's time in one place), the
+10. runs the function slice (``tpch_functions``: one line each) over the
+   same tables: the SQL texts of ``FUNCTION_SQL`` (A1, every new aggregate
+   in direct mode over ``lineitem``; A2, five of them in sort mode over its
+   15 M orders through the device carry merge; S1 and S2, the date, math,
+   probability, conditional and dictionary string functions; D1, long-decimal
+   sums past 2^63, avg and a long-decimal division; W5, a window over every
+   ``orders`` row with NULL partition and order keys, then again at SF 1 in
+   passes of whole partitions of 2^18 rows, for its rows only), each
+   row-exact against its numpy oracle (``function_oracle``) and timed like
+   the window slice; none of them launches a hand-written kernel;
+11. prints a ``summary`` line (every query's time in one place), the
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line; any failure ends the run with a traceback
@@ -222,6 +232,131 @@ WINDOW_COLUMNS = {
 }
 WINDOW_COLUMNS["F2"] = WINDOW_COLUMNS["F1"]
 WINDOW_QUERY = {"W1": 2, "W2": 15}  # the TPC-H query whose tables and oracle a text takes
+
+
+# ---------------------------------------------------------------------------
+# The function slice: the Presto scalar functions, the statistical / pair /
+# bitwise aggregates, long decimals and NULL window keys, each text over the
+# TPC-H tables and held against its numpy oracle (``function_oracle``).  The
+# tests run the same texts through both packages at SF 0.01 (W5 is held to
+# its oracle only: the JAX package orders and partitions by the raw values
+# under NULL keys).
+
+FUNCTION_SQL = {
+    # every new aggregate in direct mode: six groups of SF-10 lineitem
+    "A1": """
+select l_returnflag, l_linestatus,
+  count_if(l_discount > 0.05) as discounted,
+  bool_and(l_quantity < 50) as all_below_50,
+  bool_or(l_tax = 0.08) as any_top_tax,
+  min_by(l_orderkey, l_extendedprice) as cheapest_order,
+  max_by(l_orderkey, l_extendedprice) as dearest_order,
+  stddev_samp(l_extendedprice) as sd_price,
+  var_pop(l_quantity) as var_qty,
+  skewness(l_extendedprice) as skew_price,
+  kurtosis(l_extendedprice) as kurt_price,
+  covar_samp(l_quantity, l_extendedprice) as cov_qty_price,
+  corr(l_quantity, l_extendedprice) as corr_qty_price,
+  geometric_mean(l_extendedprice) as gm_price,
+  bitwise_or_agg(l_suppkey) as or_supp,
+  bitwise_and_agg(l_partkey * 8 + 5) as and_part,
+  checksum(l_orderkey) as ck
+from lineitem
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+""",
+    # sort mode: 15 M groups (orders) merged in the device carry
+    "A2": """
+select l_orderkey,
+  min_by(l_linenumber, l_extendedprice) as cheapest_line,
+  max_by(l_partkey, l_quantity) as biggest_part,
+  var_samp(l_extendedprice) as var_price,
+  corr(l_quantity, l_extendedprice) as corr_qty_price,
+  bool_or(l_returnflag = 'R') as any_returned
+from lineitem
+group by l_orderkey
+""",
+    # date parts and arithmetic, rounding, greatest / least, nullif, the
+    # math and probability families, inside sums and maxima by month
+    "S1": """
+select date_trunc('month', l_shipdate) as ship_month,
+  count(*) as n,
+  sum(date_diff('day', l_shipdate, l_receiptdate)) as transit_days,
+  max(date_add('day', 30, l_commitdate)) as last_due,
+  sum(quarter(l_shipdate) + week(l_shipdate) + day_of_week(l_receiptdate)) as calendar,
+  sum(round(l_extendedprice * (1 - l_discount))) as rounded_revenue,
+  max(greatest(l_quantity, l_tax * 100, l_discount * 100)) as greatest_pct,
+  sum(least(l_extendedprice, l_quantity * 1000)) as capped_price,
+  count(nullif(l_linenumber, 1)) as later_lines,
+  sum(ln(cast(l_extendedprice as double))) as log_price,
+  max(power(cast(l_quantity as double), 1.5e0)) as qty_pow,
+  sum(width_bucket(l_discount, 0.00, 0.10, 5)) as disc_buckets,
+  sum(normal_cdf(0.0e0, 1.0e0, cast(l_tax as double) * 10)) as tax_cdf
+from lineitem
+group by date_trunc('month', l_shipdate)
+order by ship_month
+""",
+    # dictionary string functions and digests, grouped on their results; the
+    # join keys pick one part and one customer per supplier
+    "S2": """
+select split_part(p_type, ' ', 3) as material,
+  word_stem(lower(split_part(p_type, ' ', 2))) as finish,
+  regexp_extract(c_phone, '^([0-9]+)-', 1) as country,
+  count(*) as n,
+  max(lpad(p_brand, 10, '*')) as brand_pad,
+  min(rpad(p_mfgr, 16, '.')) as mfgr_pad,
+  max(regexp_replace(p_container, '^[A-Z]+ ', '')) as container_kind,
+  min(replace(p_container, ' ', '_')) as container_code,
+  sum(levenshtein_distance(c_mktsegment, 'BUILDING')) as seg_distance,
+  sum(hamming_distance(p_brand, 'Brand#13')) as brand_distance,
+  min(md5(s_name)) as min_md5,
+  max(sha256(s_name)) as max_sha256
+from part, supplier, customer
+where p_partkey = s_suppkey and s_suppkey = c_custkey
+group by split_part(p_type, ' ', 3), word_stem(lower(split_part(p_type, ' ', 2))),
+  regexp_extract(c_phone, '^([0-9]+)-', 1)
+order by material, finish, country
+""",
+    # DECIMAL(38, 6) products: sums past 2^63, avg and one long-decimal
+    # division (no ORDER BY: a long decimal cannot flow through one, as in
+    # the JAX package)
+    "D1": """
+select l_returnflag,
+  sum(cast(l_extendedprice as decimal(38, 2)) * l_extendedprice * l_quantity) as big_sum,
+  avg(cast(l_extendedprice as decimal(38, 2)) * l_extendedprice * l_quantity) as big_avg,
+  sum(cast(l_extendedprice as decimal(38, 2)) * l_extendedprice * l_quantity) / count(*) as big_mean
+from lineitem
+group by l_returnflag
+""",
+    # NULL partition (custkey % 1000 = 0) and order (1995) keys, NULLS FIRST
+    # and the default NULLS LAST
+    "W5": """
+select o_orderkey, ck, od,
+  row_number() over (partition by ck order by od nulls first, o_orderkey) as rn_first,
+  row_number() over (partition by ck order by od, o_orderkey) as rn_last,
+  rank() over (partition by ck order by od nulls first) as rk_first,
+  rank() over (partition by ck order by od) as rk_last
+from (select o_orderkey, nullif(o_custkey % 1000, 0) as ck,
+             nullif(year(o_orderdate), 1995) * 1000 + day_of_year(o_orderdate) as od
+      from orders) o
+""",
+}
+FUNCTION_COLUMNS = {
+    "A1": {"lineitem": ("l_returnflag", "l_linestatus", "l_discount", "l_quantity", "l_tax",
+                        "l_orderkey", "l_extendedprice", "l_suppkey", "l_partkey")},
+    "A2": {"lineitem": ("l_orderkey", "l_linenumber", "l_extendedprice", "l_partkey",
+                        "l_quantity", "l_returnflag")},
+    "S1": {"lineitem": ("l_shipdate", "l_receiptdate", "l_commitdate", "l_extendedprice",
+                        "l_discount", "l_linenumber", "l_quantity", "l_tax")},
+    "S2": {"part": ("p_partkey", "p_type", "p_brand", "p_mfgr", "p_container"),
+           "supplier": ("s_suppkey", "s_name"),
+           "customer": ("c_custkey", "c_phone", "c_mktsegment")},
+    "D1": {"lineitem": ("l_returnflag", "l_extendedprice", "l_quantity")},
+    "W5": {"orders": ("o_orderkey", "o_custkey", "o_orderdate")},
+}
+# W5 runs a second time at SF 1 in these tile rows (rows only), so that the
+# window source's passes of whole partitions meet the NULL partition
+W5_CHUNKED_TILE_ROWS = 1 << 18
 
 
 def _col(table, name):
@@ -429,9 +564,11 @@ def _days(text: str) -> int:
 
 
 def check_window_rows(result, want, want_valid, keys):
-    """A result Table held against ``window_oracle``'s rows, exactly: the
-    rows ordered by ``keys`` on both sides, every value where valid, every
-    validity."""
+    """A result Table held against an oracle's rows: the rows ordered by
+    ``keys`` on both sides (as they come when ``keys`` is empty), every
+    validity, and every value where valid — integers exactly, floats to rtol
+    1e-9, strings (an oracle column of ``str``) by value, long decimals (an
+    oracle column of Python ints) limb pair by limb pair."""
     import numpy as np
 
     assert result.num_rows == len(next(iter(want.values()))), (result.num_rows,)
@@ -454,8 +591,310 @@ def check_window_rows(result, want, want_valid, keys):
         got_valid = result.validities.get(name)
         got_valid = np.ones(n, bool) if got_valid is None else np.asarray(got_valid)[got_o]
         assert np.array_equal(got_valid, valid), name
-        exp = np.asarray(values)[want_o]
-        assert np.array_equal(got[valid].astype(np.int64), exp[valid].astype(np.int64)), name
+        exp = np.asarray(values)[want_o][valid]
+        got = got[valid]
+        if got.ndim == 2:  # a long decimal: (n, 2) [lo, hi] limbs
+            got = np.array([(int(h) << 64) + (int(lo) & ((1 << 64) - 1)) for lo, h in got],
+                           dtype=object)
+            assert list(got) == [int(v) for v in exp], name
+        elif exp.dtype == object and len(exp) and isinstance(exp[0], str):
+            assert list(result.string_tables[name].decode(got)) == list(exp), name
+        elif exp.dtype.kind == "f":
+            assert np.allclose(got, exp, rtol=1e-9, atol=0, equal_nan=True), (
+                name, float(np.max(np.abs(got - exp) / np.maximum(np.abs(exp), 1e-300))))
+        else:
+            assert np.array_equal(got.astype(np.int64), exp.astype(np.int64)), name
+
+
+def _strings(table, name):
+    import numpy as np
+
+    return np.asarray(table.string_tables[name].decode(np.asarray(table.columns[name])), dtype=object)
+
+
+def _group_sum(values, order, starts):
+    """Per group, the float sum of ``values`` over its rows (pairwise, on
+    the group's contiguous slice of the sorted rows)."""
+    import numpy as np
+
+    sv = np.asarray(values, np.float64)[order]
+    ends = np.append(starts[1:], len(sv))
+    return np.array([sv[a:b].sum() for a, b in zip(starts, ends)])
+
+
+def _central_moments(x, gid, groups, order, starts, powers, y=None):
+    """Per group: count, and the central moment sums of x (and the
+    co-moment with y) for each power, two passes (the mean first)."""
+    import numpy as np
+
+    n = np.bincount(gid, minlength=groups).astype(np.float64)
+    dx = x - (_group_sum(x, order, starts) / n)[gid]
+    out = {p: _group_sum(dx**p, order, starts) for p in powers}
+    if y is not None:
+        dy = y - (_group_sum(y, order, starts) / n)[gid]
+        out["xy"] = _group_sum(dx * dy, order, starts)
+        out["yy"] = _group_sum(dy * dy, order, starts)
+    return n, out
+
+
+def _first_of_groups(gid, *sort_keys):
+    """Per group, the row that sorts first by ``sort_keys`` (most
+    significant first) within it: min_by / max_by with ties broken toward
+    the smaller payload, as the engine's lexicographic pairs do."""
+    import numpy as np
+
+    order = np.lexsort(tuple(reversed((gid,) + sort_keys)))
+    first = np.ones(len(order), bool)
+    first[1:] = gid[order][1:] != gid[order][:-1]
+    return order[first]
+
+
+def _splitmix64_np(v):
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        x = v.astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def _levenshtein_py(a: str, b: str) -> int:
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb)))
+        prev = cur
+    return prev[-1]
+
+
+# Porter stems of the finishes of TPC-H ``p_type`` (its second word, lower
+# case): the only words S2 stems
+FINISH_STEMS = {"anodized": "anod", "burnished": "burnish", "plated": "plate",
+                "polished": "polish", "brushed": "brush"}
+
+
+def function_oracle(name: str, tables):
+    """The expected rows of a ``FUNCTION_SQL`` text, in ``check_window_rows``'
+    form: ({column: values}, {column: validity}, the key columns that order
+    the rows, or () where the text's ORDER BY orders them)."""
+    import datetime
+    import hashlib
+    import math
+    import re
+
+    import numpy as np
+
+    if name in ("A1", "A2", "S1", "D1"):
+        li = tables["lineitem"]
+        price = _col(li, "l_extendedprice") if "l_extendedprice" in li.columns else None
+    if name == "A1":
+        flag, status = _strings(li, "l_returnflag"), _strings(li, "l_linestatus")
+        labels = np.char.add(flag.astype(str), status.astype(str))
+        keys, gid = np.unique(labels, return_inverse=True)
+        groups = len(keys)
+        order = np.argsort(gid, kind="stable")
+        starts = np.searchsorted(gid[order], np.arange(groups))
+        qty, disc, tax = _col(li, "l_quantity"), _col(li, "l_discount"), _col(li, "l_tax")
+        okey, supp, part = _col(li, "l_orderkey"), _col(li, "l_suppkey"), _col(li, "l_partkey")
+        x, q = price / 100.0, qty / 100.0
+        n, mx = _central_moments(x, gid, groups, order, starts, (2, 3, 4), y=q)
+        _, mq = _central_moments(q, gid, groups, order, starts, (2,))
+        cov = mx["xy"]
+        ck = np.zeros(groups, np.uint64)
+        with np.errstate(over="ignore"):
+            np.add.at(ck, gid, _splitmix64_np(okey))
+        cols = {
+            "l_returnflag": np.array([k[0] for k in keys], dtype=object),
+            "l_linestatus": np.array([k[1] for k in keys], dtype=object),
+            "discounted": np.bincount(gid, disc > 5, groups).astype(np.int64),
+            "all_below_50": np.bincount(gid, qty >= 5000, groups) == 0,
+            "any_top_tax": np.bincount(gid, tax == 8, groups) > 0,
+            "cheapest_order": okey[_first_of_groups(gid, price, okey)],
+            "dearest_order": okey[_first_of_groups(gid, -price, okey)],
+            "sd_price": np.sqrt(mx[2] / (n - 1)),
+            "var_qty": mq[2] / n,
+            "skew_price": np.sqrt(n) * mx[3] / mx[2] ** 1.5,
+            "kurt_price": n * mx[4] / mx[2] ** 2 - 3.0,
+            "cov_qty_price": cov / (n - 1),
+            "corr_qty_price": cov / np.sqrt(mx[2] * mx["yy"]),
+            "gm_price": np.exp(_group_sum(np.log(x), order, starts) / n),
+            "or_supp": np.bitwise_or.reduceat(supp[order], starts),
+            "and_part": np.bitwise_and.reduceat((part * 8 + 5)[order], starts),
+            "ck": ck.view(np.int64),
+        }
+        return cols, {}, ()
+    if name == "A2":
+        okey, line = _col(li, "l_orderkey"), _col(li, "l_linenumber")
+        part, qty = _col(li, "l_partkey"), _col(li, "l_quantity")
+        returned = _strings(li, "l_returnflag") == "R"
+        order = np.argsort(okey, kind="stable")
+        starts = np.flatnonzero(np.r_[True, okey[order][1:] != okey[order][:-1]])
+        gid = np.empty(len(okey), np.int64)
+        gid[order] = np.cumsum(np.r_[True, okey[order][1:] != okey[order][:-1]]) - 1
+        n = np.diff(np.append(starts, len(okey)))
+        x, q = (price / 100.0)[order], (qty / 100.0)[order]
+        # groups are a few rows: reduceat over the sorted rows, two passes
+        dx = x - np.repeat(np.add.reduceat(x, starts) / n, n)
+        dq = q - np.repeat(np.add.reduceat(q, starts) / n, n)
+        m2x = np.add.reduceat(dx * dx, starts)
+        m2q = np.add.reduceat(dq * dq, starts)
+        cxy = np.add.reduceat(dx * dq, starts)
+        denom = np.sqrt(m2x * m2q)
+        cols = {
+            "l_orderkey": okey[order][starts],
+            "cheapest_line": line[_first_of_groups(gid, price, line)],
+            "biggest_part": part[_first_of_groups(gid, -qty, part)],
+            "var_price": m2x / np.maximum(n - 1, 1),
+            "corr_qty_price": cxy / np.where(denom > 0, denom, 1.0),
+            "any_returned": np.bincount(gid, returned) > 0,
+        }
+        valid = {"var_price": n >= 2, "corr_qty_price": (n >= 2) & (denom > 0)}
+        return cols, valid, ("l_orderkey",)
+    if name == "S1":
+        ship, receipt, commit = (_col(li, c) for c in ("l_shipdate", "l_receiptdate", "l_commitdate"))
+        disc, qty, tax, line = (_col(li, c) for c in ("l_discount", "l_quantity", "l_tax", "l_linenumber"))
+        month = ship.astype("datetime64[D]").astype("datetime64[M]").astype("datetime64[D]").astype(np.int64)
+        keys, gid = np.unique(month, return_inverse=True)
+        groups = len(keys)
+        order = np.argsort(gid, kind="stable")
+        starts = np.searchsorted(gid[order], np.arange(groups))
+
+        def per_date(days, fn):
+            distinct, inv = np.unique(days, return_inverse=True)
+            epoch = datetime.date(1970, 1, 1)
+            return np.array([fn(epoch + datetime.timedelta(days=int(d))) for d in distinct])[inv]
+
+        calendar = (per_date(ship, lambda d: (d.month - 1) // 3 + 1)
+                    + per_date(ship, lambda d: d.isocalendar()[1])
+                    + per_date(receipt, lambda d: d.isoweekday()))
+        revenue = price * (100 - disc)  # DECIMAL scale 4
+        rounded = np.sign(revenue) * ((np.abs(revenue) + 5000) // 10000) * 10000
+        xd = disc / 100.0
+        bucket = np.clip(np.floor((xd - 0.0) / ((0.1 - 0.0) / 5)).astype(np.int64) + 1, 0, 6)
+        tax_values, tax_inv = np.unique(tax, return_inverse=True)
+        cdf = np.array([0.5 * (1.0 + math.erf((t / 100.0 * 10) / (1.0 * math.sqrt(2.0))))
+                        for t in tax_values])[tax_inv]
+        cols = {
+            "ship_month": keys,
+            "n": np.bincount(gid, minlength=groups).astype(np.int64),
+            "transit_days": np.bincount(gid, receipt - ship, groups).astype(np.int64),
+            "last_due": np.maximum.reduceat((commit + 30)[order], starts),
+            "calendar": np.bincount(gid, calendar, groups).astype(np.int64),
+            "rounded_revenue": np.add.reduceat(rounded[order], starts),
+            # DECIMAL(18, 4): an integer literal multiplies at the decimal's
+            # scale (both sides coerce to it), so tax * 100 has scale 4
+            "greatest_pct": np.maximum.reduceat(
+                np.maximum(qty * 100, np.maximum(tax, disc) * 10000)[order], starts),
+            "capped_price": np.add.reduceat(np.minimum(price * 100, qty * 100000)[order], starts),
+            "later_lines": np.bincount(gid, line != 1, groups).astype(np.int64),
+            "log_price": _group_sum(np.log(price / 100.0), order, starts),
+            "qty_pow": np.maximum.reduceat(((qty / 100.0) ** 1.5)[order], starts),
+            "disc_buckets": np.bincount(gid, bucket, groups).astype(np.int64),
+            "tax_cdf": _group_sum(cdf, order, starts),
+        }
+        return cols, {}, ()
+    if name == "S2":
+        pa, su, cu = tables["part"], tables["supplier"], tables["customer"]
+        sk = _col(su, "s_suppkey")
+        pk, ck = _col(pa, "p_partkey"), _col(cu, "c_custkey")
+        # the keys are 1..N in row order: p_partkey = s_suppkey = c_custkey
+        # picks the first len(supplier) rows of part and customer
+        m = len(sk)
+        assert np.array_equal(sk, np.arange(1, m + 1)) and np.array_equal(pk[:m], sk)
+        assert np.array_equal(ck[:m], sk)
+        ptype, brand = _strings(pa, "p_type")[:m], _strings(pa, "p_brand")[:m]
+        mfgr, cont = _strings(pa, "p_mfgr")[:m], _strings(pa, "p_container")[:m]
+        phone, seg = _strings(cu, "c_phone")[:m], _strings(cu, "c_mktsegment")[:m]
+        sname = _strings(su, "s_name")
+        rows = {}
+        for i in range(m):
+            words = ptype[i].split(" ")
+            key = (words[2], FINISH_STEMS[words[1].lower()],
+                   re.match(r"^([0-9]+)-", phone[i]).group(1))
+            vals = (
+                brand[i].rjust(10, "*")[:10], mfgr[i].ljust(16, ".")[:16],
+                re.sub(r"^[A-Z]+ ", "", cont[i]), cont[i].replace(" ", "_"),
+                _levenshtein_py(seg[i], "BUILDING"),
+                sum(a != b for a, b in zip(brand[i], "Brand#13")) if len(brand[i]) == 8 else -1,
+                hashlib.md5(sname[i].encode()).hexdigest(),
+                hashlib.sha256(sname[i].encode()).hexdigest(),
+            )
+            r = rows.get(key)
+            if r is None:
+                rows[key] = [1, *vals]
+            else:
+                rows[key] = [r[0] + 1, max(r[1], vals[0]), min(r[2], vals[1]), max(r[3], vals[2]),
+                             min(r[4], vals[3]), r[5] + vals[4], r[6] + vals[5],
+                             min(r[7], vals[6]), max(r[8], vals[7])]
+        keys = sorted(rows)
+        names = ("n", "brand_pad", "mfgr_pad", "container_kind", "container_code",
+                 "seg_distance", "brand_distance", "min_md5", "max_sha256")
+        cols = {
+            "material": np.array([k[0] for k in keys], dtype=object),
+            "finish": np.array([k[1] for k in keys], dtype=object),
+            "country": np.array([k[2] for k in keys], dtype=object),
+        }
+        for j, col in enumerate(names):
+            vals = [rows[k][j] for k in keys]
+            cols[col] = np.array(vals, dtype=object if isinstance(vals[0], str) else np.int64)
+        return cols, {}, ()
+    if name == "D1":
+        qty = _col(li, "l_quantity")
+        product = price * price * qty  # DECIMAL(38, 6), every row within int64
+        assert product.max() < (1 << 62)
+        # the text's rows come in the grouping's order, the dictionary codes
+        # of l_returnflag
+        codes, gid = np.unique(np.asarray(li.columns["l_returnflag"]), return_inverse=True)
+        keys = li.string_tables["l_returnflag"].decode(codes)
+        high = np.bincount(gid, product >> 32, len(keys))
+        low = np.bincount(gid, product & 0xFFFFFFFF, len(keys))
+        # the 32-bit halves' sums are exact in float64 (each < 2^53)
+        assert high.max() < 2.0**53 and low.max() < 2.0**53
+        sums = [(int(h) << 32) + int(lo) for h, lo in zip(high, low)]
+        counts = np.bincount(gid, minlength=len(keys))
+
+        def div_round(a, b):
+            q, r = divmod(abs(a), b)
+            return (q + (2 * r >= b)) * (1 if a >= 0 else -1)
+
+        cols = {
+            "l_returnflag": np.array(keys, dtype=object),
+            "big_sum": np.array(sums, dtype=object),
+            "big_avg": np.array([v / c / 1e6 for v, c in zip(sums, counts)]),
+            "big_mean": np.array([div_round(v, int(c)) for v, c in zip(sums, counts)], dtype=object),
+        }
+        return cols, {}, ()
+    if name == "W5":
+        o = tables["orders"]
+        okey, cust, date = _col(o, "o_orderkey"), _col(o, "o_custkey"), _col(o, "o_orderdate")
+        ck = cust % 1000
+        ck_valid = ck != 0
+        dt = date.astype("datetime64[D]")
+        year = dt.astype("datetime64[Y]").astype(np.int64) + 1970
+        doy = (dt - dt.astype("datetime64[Y]").astype("datetime64[D]")).astype(np.int64) + 1
+        od = year * 1000 + doy
+        od_valid = year != 1995
+        n = len(okey)
+        # partition: (ck null last, ck); NULLs are one partition
+        part = np.where(ck_valid, ck, 1000)
+        cols = {"o_orderkey": okey, "ck": np.where(ck_valid, ck, 0), "od": np.where(od_valid, od, 0)}
+        for suffix, null_key in (("first", 0), ("last", 1)):
+            flag = np.where(od_valid, 1 - null_key, null_key)  # sorts NULLs first / last
+            key_od = np.where(od_valid, od, 0)
+            rn_order = np.lexsort((okey, key_od, flag, part))
+            ps = part[rn_order]
+            start = np.flatnonzero(np.r_[True, ps[1:] != ps[:-1]])
+            first = np.repeat(start, np.diff(np.append(start, n)))
+            pos = np.arange(n)
+            cols[f"rn_{suffix}"] = _scatter(rn_order, pos - first + 1)
+            peer = np.r_[True, (ps[1:] != ps[:-1]) | (flag[rn_order][1:] != flag[rn_order][:-1])
+                         | (key_od[rn_order][1:] != key_od[rn_order][:-1])]
+            peer_start = np.maximum.accumulate(np.where(peer, pos, 0))
+            cols[f"rk_{suffix}"] = _scatter(rn_order, peer_start - first + 1)
+        return cols, {"ck": ck_valid, "od": od_valid}, ("o_orderkey",)
+    raise KeyError(name)
 
 
 def say(phase: str, **fields) -> None:
@@ -820,7 +1259,7 @@ class TpchTables:
         self.sf = sf
         self.columns = {}
         for cols in (*QUERY_COLUMNS.values(), *WINDOW_COLUMNS.values(),
-                     *WINDOW_PLAN_COLUMNS.values()):
+                     *WINDOW_PLAN_COLUMNS.values(), *FUNCTION_COLUMNS.values()):
             for name, names in cols.items():
                 self.columns.setdefault(name, set()).update(names)
         self._tables = {}
@@ -1092,18 +1531,19 @@ def run_tpch(num: int, tables, tile_rows: int, runs: int, want=None, sql=False):
     return fields, want
 
 
-def run_window_slice(name: str, cache, tile_rows: int, want=None):
-    """One text of ``WINDOW_SQL`` (planned by ``plan_sql``) or one of the two
-    ``window_plan`` plans over the tables of ``cache``, as a caller of
-    ``run_sql`` / ``run_plan`` waits for it: executor construction (which
-    runs the window, union, merge or join build sides) and the run, ending in
-    the result fetch.  The first run is held against the numpy oracle
-    (``window_oracle`` / ``window_plan_oracle``; W1 and W2 against the
+def run_slice_text(name: str, cache, tile_rows: int, want=None, rows_only=False):
+    """One text of ``WINDOW_SQL`` / ``FUNCTION_SQL`` (planned by
+    ``plan_sql``) or one of the two ``window_plan`` plans over the tables of
+    ``cache``, as a caller of ``run_sql`` / ``run_plan`` waits for it:
+    executor construction (which runs the window, union, merge or join build
+    sides and every barrier) and the run, ending in the result fetch.  The
+    first run is held against the numpy oracle (``window_oracle`` /
+    ``window_plan_oracle`` / ``function_oracle``; W1 and W2 against the
     oracles of Q2 and Q15, or ``want``); ``query_ms`` is the median of the
     first run and ``WHOLE_RUNS`` - 1 more, for every text, and one more run
     under ``torch.profiler`` gives the device time (its wall time, profiler
-    included, is printed beside it).  Returns (the line's fields, the oracle
-    frame of W1 / W2 or None)."""
+    included, is printed beside it).  ``rows_only``: the checked run alone.
+    Returns (the line's fields, the oracle frame of W1 / W2 or None)."""
     import torch
 
     from velox_tpu_torch.connectors.tpch.queries import QUERY_COLUMNS
@@ -1112,12 +1552,18 @@ def run_window_slice(name: str, cache, tile_rows: int, want=None):
     from velox_tpu_torch.sql import plan_sql
 
     is_plan = name in WINDOW_PLAN_COLUMNS
-    columns = (WINDOW_PLAN_COLUMNS[name] if is_plan else
-               QUERY_COLUMNS[WINDOW_QUERY[name]] if name in WINDOW_QUERY else WINDOW_COLUMNS[name])
+    if is_plan:
+        columns = WINDOW_PLAN_COLUMNS[name]
+    elif name in FUNCTION_SQL:
+        columns = FUNCTION_COLUMNS[name]
+    elif name in WINDOW_QUERY:
+        columns = QUERY_COLUMNS[WINDOW_QUERY[name]]
+    else:
+        columns = WINDOW_COLUMNS[name]
     tables = {t: cache.table(t).select(list(c)) for t, c in columns.items()}
     t0 = time.perf_counter()
     plan = (window_plan(name, PlanBuilder, tables) if is_plan
-            else plan_sql(WINDOW_SQL[name], tables))
+            else plan_sql(FUNCTION_SQL.get(name) or WINDOW_SQL[name], tables))
     plan_s = time.perf_counter() - t0
 
     def once():
@@ -1135,20 +1581,32 @@ def run_window_slice(name: str, cache, tile_rows: int, want=None):
         _, want = check_frame(WINDOW_QUERY[name], result, tables, want=want, sql=True)
     elif is_plan:
         check_window_rows(result, *window_plan_oracle(name, tables))
+    elif name in FUNCTION_SQL:
+        check_window_rows(result, *function_oracle(name, tables))
     else:
         check_window_rows(result, *window_oracle(name, tables))
     oracle_s = time.perf_counter() - t0
     fields = dict(
-        name=name, sf=cache.sf, rows_in={t: v.num_rows for t, v in tables.items()},
+        name=name, sf=cache.sf, tile_rows=tile_rows,
+        rows_in={t: v.num_rows for t, v in tables.items()},
         result_rows=result.num_rows, plan_s=plan_s, build_s=ex.build_seconds,
         kind=ex.kind, window_passes=len(ex.window_chunks),
         window_largest_pass_rows=max((r for _, r in ex.window_chunks), default=0),
         window_largest_pass_capacity=max((c for c, _ in ex.window_chunks), default=0),
-        **expansion_report(ex), device_peak_bytes_first_run=peak, oracle_s=oracle_s,
-        correct=True,
+        **expansion_report(ex), aggregations=[
+            dict(kind=k, carry_groups=g, carry_overflowed=o, groups_out=n)
+            for k, g, o, n in ex.barrier_aggregations
+        ] + ([dict(kind=ex.kind, carry_groups=ex.carry_groups,
+                   carry_overflowed=ex.carry_overflowed, groups_out=ex.groups_out)]
+             if ex.agg_exec is not None else []),
+        device_peak_bytes_first_run=peak,
+        oracle_s=oracle_s, correct=True,
     )
     del ex, result
     torch.cuda.empty_cache()
+    if rows_only:
+        fields.update(first_run_ms=walls[0])
+        return fields, want
     for _ in range(WHOLE_RUNS - 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1350,13 +1808,34 @@ def main() -> int:
     names = [*WINDOW_SQL, *WINDOW_PLAN_COLUMNS]
     for name in names:
         if name in WINDOW_AT_SF1 and args.sf > 1:
-            fields, _ = run_window_slice(name, small, WINDOW_AT_SF1[name])
+            fields, _ = run_slice_text(name, small, WINDOW_AT_SF1[name])
         else:
-            fields, _ = run_window_slice(name, cache, args.tile_rows,
-                                         want=oracles.get(WINDOW_QUERY.get(name)))
+            fields, _ = run_slice_text(name, cache, args.tile_rows,
+                                       want=oracles.get(WINDOW_QUERY.get(name)))
         say("tpch_window", **fields)
         summary[f"window {name}"] = [None, None, fields["build_s"], fields["query_ms"],
                                      fields["query_device_busy_ms"]]
+    assert before == dict((name, w.launches) for name, w in wrappers.items())
+
+    # ---- the function slice: the new aggregates in direct mode (A1) and in
+    # sort mode through the device carry merge (A2), the scalar functions
+    # (S1, S2), long decimals (D1) and NULL window keys (W5, and W5 again at
+    # SF 1 in passes of whole partitions).  They launch none of the
+    # hand-written kernels, and must not.
+    before = dict((name, w.launches) for name, w in wrappers.items())
+    for name in FUNCTION_SQL:
+        fields, _ = run_slice_text(name, cache, args.tile_rows)
+        if name == "A2":
+            [agg] = fields["aggregations"]
+            assert agg["kind"] == "sort_agg_device" and not agg["carry_overflowed"], agg
+        if name == "W5":  # one pass a window node over every orders row
+            assert fields["window_largest_pass_rows"] == fields["rows_in"]["orders"], fields
+        say("tpch_functions", **fields)
+        summary[f"functions {name}"] = [None, None, fields["build_s"], fields["query_ms"],
+                                        fields["query_device_busy_ms"]]
+    fields, _ = run_slice_text("W5", small, W5_CHUNKED_TILE_ROWS, rows_only=True)
+    assert fields["window_passes"] > 1, fields
+    say("tpch_functions", **fields)
     assert before == dict((name, w.launches) for name, w in wrappers.items())
     say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)
 

@@ -1326,6 +1326,9 @@ class LocalExecutor:
         self.build_expansions: List[Tuple[int, int]] = []
         # (tile capacity, rows) of every window pass those ran
         self.window_chunks: List[Tuple[int, int]] = []
+        # (kind, carry slots, carry overflowed, groups out) of every
+        # aggregation those ran
+        self.barrier_aggregations: List[Tuple[str, Optional[int], bool, Optional[int]]] = []
         lin = _linearize(root)
         if isinstance(lin.source, (WindowNode, UnionAllNode, MergeExchangeNode)):
             # a window or set-operation source runs first, and the plan above
@@ -1468,9 +1471,14 @@ class LocalExecutor:
             self._plan_device_sort()
 
     def _absorb(self, sub: "LocalExecutor") -> None:
-        """Keep a sub-executor's expansion and window reports."""
+        """Keep a sub-executor's expansion, window and aggregation reports."""
         self.build_expansions += sub.build_expansions + sub.expansions
         self.window_chunks += sub.window_chunks
+        self.barrier_aggregations += sub.barrier_aggregations
+        if sub.agg_exec is not None:
+            self.barrier_aggregations.append(
+                (sub.kind, sub.carry_groups, sub.carry_overflowed, sub.groups_out)
+            )
 
     def _run_sub(self, node: PlanNode) -> Table:
         sub = self._sub_executor(node)
