@@ -1,7 +1,8 @@
 """The TPC-H texts of the function slice (``chip_smoke.py`` ``FUNCTION_SQL``:
 A1 and A2, the new aggregates in direct and sort mode; S1 and S2, the
 scalar and string functions; D1, long-decimal sums past 2^63, avg and a
-long-decimal division; W5, a window with NULL partition and order keys) at
+long-decimal division; T1, time zones over the order dates; W5, a window
+with NULL partition and order keys) at
 SF 0.01, through both packages' ``run_sql`` with small tiles and against
 the numpy oracles that ``chip_smoke.py`` holds the card's rows to.
 

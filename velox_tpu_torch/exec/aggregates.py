@@ -252,6 +252,12 @@ class MomentAggregate(BoundAggregate):
     the merged means first, then every moment.  Real values are the
     reference's where it is accurate.
 
+    A DECIMAL variable enters unscaled (its integer as float64; the
+    extraction divides the scale out), so its sums are exact whatever order
+    a device adds them in, and a group of equal values has mean equal to
+    them and moments of exactly 0 (the correlation of a constant column is
+    then NULL, not rounding noise).
+
     Accumulators: count (int64), one sum per variable, then one central
     moment per exponent tuple of ``orders`` (each tuple names one power per
     variable; every tuple of order 2 or more that a merge needs is itself in
@@ -389,6 +395,10 @@ def _wide_sum_extract(accs):
     return values, count > 0
 
 
+def _scale(t: DataType) -> int:
+    return t.scale if t.kind == TypeKind.DECIMAL else 0
+
+
 def _to_float(values: torch.Tensor, t: DataType) -> torch.Tensor:
     v = values.to(torch.float64)
     if t.kind == TypeKind.DECIMAL and t.scale:
@@ -462,12 +472,12 @@ def _value_if_counted(accs):
     return (accs[0], accs[1] > 0)
 
 
-def _variance_extract(pop: bool, sqrt: bool):
+def _variance_extract(pop: bool, sqrt: bool, scale: int):
     def extract(accs):
         n, _, m2 = (np.asarray(a) for a in accs)
         nf = np.maximum(n, 1).astype(np.float64)
         denom = nf if pop else np.maximum(nf - 1.0, 1.0)
-        out = np.maximum(m2, 0.0) / denom
+        out = np.maximum(m2, 0.0) / denom / 10.0 ** (2 * scale)
         if sqrt:
             out = np.sqrt(out)
         valid = (n >= 1) if pop else (n >= 2)
@@ -490,7 +500,7 @@ def _moments_extract(name: str):
     return extract
 
 
-def _covariance_extract(name: str):
+def _covariance_extract(name: str, scale: int):
     def extract(accs):
         n, _, _, cxy, vx, vy = (np.asarray(a) for a in accs)
         nf = np.maximum(n, 1).astype(np.float64)
@@ -499,8 +509,8 @@ def _covariance_extract(name: str):
             out = np.where(denom > 0, cxy / np.where(denom > 0, denom, 1.0), np.nan)
             return out, (n >= 2) & (denom > 0)
         if name == "covar_pop":
-            return cxy / nf, n >= 1
-        return cxy / np.maximum(nf - 1.0, 1.0), n >= 2
+            return cxy / nf / 10.0**scale, n >= 1
+        return cxy / np.maximum(nf - 1.0, 1.0) / 10.0**scale, n >= 2
 
     return extract
 
@@ -635,8 +645,8 @@ def bind_aggregate(
         return MomentAggregate(
             name, DOUBLE, (torch.int64, torch.float64, torch.float64),
             ("sum", "sum", "sum"),
-            lambda values, mask, _t=t0: (_to_float(values[0], _t),),
-            _variance_extract(name.endswith("_pop"), name.startswith("stddev")),
+            lambda values, mask: (values[0].to(torch.float64),),
+            _variance_extract(name.endswith("_pop"), name.startswith("stddev"), _scale(t0)),
             input_index, arg_roles=("plain",), orders=((2,),),
         )
 
@@ -681,7 +691,7 @@ def bind_aggregate(
             name, DOUBLE,
             (torch.int64,) + (torch.float64,) * 4,
             ("sum",) * 5,
-            lambda values, mask, _t=t0: (_to_float(values[0], _t),),
+            lambda values, mask: (values[0].to(torch.float64),),
             _moments_extract(name), input_index, arg_roles=("plain",),
             orders=((2,), (3,), (4,)),
         )
@@ -692,10 +702,9 @@ def bind_aggregate(
         name, DOUBLE,
         (torch.int64,) + (torch.float64,) * 5,
         ("sum",) * 6,
-        lambda values, mask, _tx=types[0], _ty=types[1]: (
-            _to_float(values[0], _tx), _to_float(values[1], _ty),
-        ),
-        _covariance_extract(name), input_index, arg_roles=("plain", "plain"),
+        lambda values, mask: (values[0].to(torch.float64), values[1].to(torch.float64)),
+        _covariance_extract(name, _scale(types[0]) + _scale(types[1])),
+        input_index, arg_roles=("plain", "plain"),
         orders=((1, 1), (2, 0), (0, 2)),
     )
 
