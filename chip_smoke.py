@@ -63,7 +63,8 @@ data is the same in every run.  The script
    Q2 and Q15 with their subqueries written as windows, held against those
    queries' oracles; W3, a window over every ``orders`` row by customer; W4,
    one over every ``lineitem`` row by order, cut into passes of whole
-   partitions, at SF 1 when ``--sf`` is larger (``WINDOW_AT_SF1``); F1 and F2, FULL joins plain and with a non-equi condition;
+   partitions; F1 and F2, FULL joins plain and with a non-equi condition;
+   W3, W4, F1 and F2 at SF 1 when ``--sf`` is larger, ``WINDOW_AT_SF1``;
    U1, UNION ALL; N1, a join with no equality) and the two ``window_plan``
    plans (a MergeExchange of two sorted ``orders`` branches, and
    ``topn_row_number``), each row-exact against its numpy oracle, with the
@@ -124,8 +125,11 @@ PLANS_AT_SF1 = (21,)
 # window-slice texts that run at SF 1 when ``--sf`` is larger, with their
 # tile rows there: W4 over every SF-10 ``lineitem`` row took 20 s a run with
 # an H100 (about 2 minutes with its oracle and profiled run); at SF 1, 6 M
-# rows in tiles of 2^21 are still cut into window passes of whole partitions
-WINDOW_AT_SF1 = {"W4": 1 << 21}
+# rows in tiles of 2^21 are still cut into window passes of whole partitions.
+# W3 (12 s a run at SF 10, 100 s with its oracle and profiled run), F1 and
+# F2 (3.5 s and 10 s a run) follow, so that the function slice fits the
+# script's time; W5 keeps a window over every SF-10 ``orders`` row
+WINDOW_AT_SF1 = {"W4": 1 << 21, "W3": 1 << 24, "F1": 1 << 24, "F2": 1 << 24}
 
 
 # ---------------------------------------------------------------------------
@@ -969,7 +973,10 @@ def function_oracle(name: str, tables):
         for suffix, null_key in (("first", 0), ("last", 1)):
             flag = np.where(od_valid, 1 - null_key, null_key)  # sorts NULLs first / last
             key_od = np.where(od_valid, od, 0)
-            rn_order = np.lexsort((okey, key_od, flag, part))
+            # one sort of (partition, flag, od, orderkey) packed in a word
+            bits = [(part, 11), (flag, 1), (key_od, 22),
+                    (okey, max(1, int(okey.max()).bit_length()))]
+            rn_order = np.argsort(_packed(bits), kind="stable")
             ps = part[rn_order]
             start = np.flatnonzero(np.r_[True, ps[1:] != ps[:-1]])
             first = np.repeat(start, np.diff(np.append(start, n)))

@@ -4,9 +4,10 @@ each through both ``LocalExecutor``s (``tests/test_null_grouping.py`` is
 mirrored in ``test_torch_null_grouping.py``, the fuzzer's one-tile and
 host-merge plans in ``test_torch_aggregation_fuzzer.py``).
 
-Each aggregate runs ungrouped, grouped in array mode (a key of 7 values),
-grouped in sort mode over several tiles with the device carry merge, and
-with the host merge (``device_agg_merge=False``).  Integers and booleans
+Each aggregate runs ungrouped, grouped in array mode (a key of 7 values) and
+grouped in sort mode over several tiles with the device carry merge; the
+host merge (``device_agg_merge=False``) of every aggregate is in
+``test_torch_aggregation_fuzzer.py``.  Integers and booleans
 agree exactly, DOUBLE to rtol 1e-9.  The statistical aggregates (variance,
 covariance, correlation, skewness, kurtosis) differ in algorithm: the JAX
 package keeps raw power sums and subtracts at the end, which cancels where a
@@ -26,12 +27,10 @@ import numpy as np
 import pytest
 
 import velox_tpu as vt
-from velox_tpu.config import QueryConfig as RefConfig
 from velox_tpu.exec.aggregates import AGGREGATE_NAMES as REF_NAMES
 from velox_tpu.exec.runner import LocalExecutor as RefExecutor
 from velox_tpu.io.table import Table as RefTable
 from velox_tpu.plan import PlanBuilder as RefBuilder
-from velox_tpu_torch.config import QueryConfig as PortConfig
 from velox_tpu_torch.dtypes import BIGINT
 from velox_tpu_torch.exec.aggregates import AGGREGATE_NAMES, bind_aggregate
 from velox_tpu_torch.exec.runner import LocalExecutor as PortExecutor
@@ -97,26 +96,23 @@ CASES = {
     ],
 }
 
-# label: (grouping keys, tile rows, host merge)
+# label: (grouping keys, tile rows)
 MODES = {
-    "ungrouped": ((), 256, False),
-    "array": (("k",), 256, False),
-    "sort_device_merge": (("g",), 256, False),
-    "sort_host_merge": (("g",), 256, True),
+    "ungrouped": ((), 256),
+    "array": (("k",), 256),
+    "sort_device_merge": (("g",), 256),
 }
 
 
-def _run_both(aggs, keys, tile, host_merge):
+def _run_both(aggs, keys, tile):
     ref_t, port_t = _tables()
 
     def plan(builder, t):
         pb = builder().table_scan(t).aggregation(list(keys), list(aggs))
         return (pb.orderby(list(keys)) if keys else pb).build()
 
-    port_kw = {"config": PortConfig(device_agg_merge=False)} if host_merge else {}
-    ref_kw = {"config": RefConfig(device_agg_merge=False)} if host_merge else {}
-    port_ex = PortExecutor(plan(PortBuilder, port_t), tile_rows=tile, device="cpu", **port_kw)
-    ref_ex = RefExecutor(plan(RefBuilder, ref_t), tile_rows=tile, **ref_kw)
+    port_ex = PortExecutor(plan(PortBuilder, port_t), tile_rows=tile, device="cpu")
+    ref_ex = RefExecutor(plan(RefBuilder, ref_t), tile_rows=tile)
     return port_ex, port_ex.run(), ref_ex.run()
 
 
@@ -186,11 +182,10 @@ def _assert_stats_no_worse_than_reference(got, want, aggs, keys):
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("case", list(CASES))
 def test_aggregate_matches_reference(case, mode):
-    keys, tile, host_merge = MODES[mode]
-    ex, got, want = _run_both(CASES[case], keys, tile, host_merge)
+    keys, tile = MODES[mode]
+    ex, got, want = _run_both(CASES[case], keys, tile)
     assert ex.kind == {
         "ungrouped": "direct_agg", "array": "direct_agg", "sort_device_merge": "sort_agg_device",
-        "sort_host_merge": "sort_agg",
     }[mode]
     _assert_stats_no_worse_than_reference(got, want, CASES[case], keys)
     assert_same_rows(got, want)
@@ -203,7 +198,7 @@ def test_one_row_statistics_are_exact():
     own values."""
     ex, got, _ = _run_both(
         ["count(*) as n", "var_pop(w) as vp", "stddev_pop(w) as sd", "skewness(w) as sk"],
-        ("g",), 256, False,
+        ("g",), 256,
     )
     n = np.asarray(got.columns["n"])
     assert (n == 1).any() and (n == 2).any()

@@ -52,9 +52,8 @@ def _plan(builder, table, aggs):
 
 @pytest.mark.parametrize("seed", range(8))
 def test_aggregation_plan_equivalence(seed):
-    rng = np.random.default_rng(1000 + seed)
-    aggs = [AGGS[int(i)] for i in rng.choice(len(AGGS), 2, replace=False)]
-    aggs = [aggs[0], aggs[1].replace(" as r", " as r2")]
+    # two aggregates a seed, every one of AGGS once over the eight seeds
+    aggs = [AGGS[2 * seed], AGGS[2 * seed + 1].replace(" as r", " as r2")]
     ref_t, port_t = _tables(seed)
     plan = _plan(PlanBuilder, port_t, aggs)
     results = {
