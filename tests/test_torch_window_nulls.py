@@ -8,9 +8,9 @@ gives other rows.  Each case runs through ``run_sql`` at three tile sizes:
 at 4 rows the window source cuts the input into chunks of whole partitions.
 
 The JAX package partitions and orders by the raw values under the NULLs, so
-its rows differ here; where the table has NULLs, the case also asserts the
-reference's known-wrong rows, named as such, so that a change on either side
-shows."""
+its rows differ here; for the three cases of ``ROADMAP.md`` Queue 3 the test
+also asserts the reference's known-wrong rows, named as such, so that a
+change on either side shows."""
 
 import numpy as np
 import pytest

@@ -18,7 +18,10 @@ and every function is a pass over the sorted tile:
 The sort is ``ops/sortkey.py sort_operands`` (stable sorts from the last key
 to the first, so ties keep their input order, which decides ``row_number``
 among peers); the payload follows the permutation by ``index_select``.  DESC
-keys are negated, as in the JAX package.
+keys are negated, as in the JAX package.  A nullable key sorts as (null
+flag, value zeroed under NULL), so all NULL keys are one partition or peer
+group, placed as ``SortKey.nulls_first`` says; the JAX package reads the
+raw values under NULLs there.
 
 Scope: ROWS and RANGE frames — UNBOUNDED PRECEDING .. CURRENT ROW (the SQL
 default, with RANGE peer semantics), full-partition frames, and k-bounded
