@@ -42,6 +42,7 @@ from ..ops.segmented import (
     identity_for as _identity,
     masked_reduce,
     masked_reduce_pair,
+    pair_wins,
 )
 
 _COMBINE = {
@@ -64,13 +65,6 @@ def _grouped_reduce(arr, mask, group_ids, num_groups, op):
     if num_groups == 1:
         return masked_reduce(arr, mask, op).reshape(1)
     return direct_group_reduce(arr, mask, group_ids, num_groups, op)
-
-
-def _pair_take(op: str, ay, ax, by, bx):
-    """Lexicographic (ordering, payload) select: does (by, bx) win over (ay, ax)?"""
-    if op == "min":
-        return (by < ay) | ((by == ay) & (bx < ax))
-    return (by > ay) | ((by == ay) & (bx < ax))
 
 
 @dataclasses.dataclass
@@ -134,7 +128,7 @@ class BoundAggregate:
         """Combine two aligned accumulator tuples respecting pairs."""
 
         def paired(y, x, op):
-            take = _pair_take(op, accs[y], accs[x], news[y], news[x])
+            take = pair_wins(op, accs[y], accs[x], news[y], news[x])
             return torch.where(take, news[y], accs[y]), torch.where(take, news[x], accs[x])
 
         result = self._per_acc(lambda i, op: _COMBINE[op](accs[i], news[i]), paired)

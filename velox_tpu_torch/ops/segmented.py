@@ -46,7 +46,7 @@ scan (Hillis-Steele) taken at each run's last row.  Lexicographic
 (ordering, payload) pairs (min_by / max_by): ``masked_reduce_pair`` and
 ``direct_group_reduce_pair`` take the extreme ordering and then the smallest
 payload among its rows; ``segmented_scan_pair`` is the log-step scan of the
-same combine (``_pair_wins``: ties go to the smaller payload), which
+same combine (``pair_wins``: ties go to the smaller payload), which
 ``SortedRuns.reduce_pair`` takes at each run's end.
 
 Reference counterpart: velox/exec/HashTable.h kArray mode for the direct
@@ -147,7 +147,7 @@ def direct_group_reduce(
     raise NotImplementedError(f"direct_group_reduce op {op!r} is not ported yet")
 
 
-def _pair_wins(op: str, ay, ax, by, bx):
+def pair_wins(op: str, ay, ax, by, bx):
     """Lexicographic (ordering, payload): does (b) replace (a)?  Ties go to the
     smaller payload so results are deterministic."""
     if op == "min":
@@ -242,12 +242,12 @@ def segmented_scan_pair(
     y: torch.Tensor, x: torch.Tensor, boundary: torch.Tensor, op: str
 ):
     """Inclusive lexicographic-extreme scan of (y, x) pairs, reset at
-    segments (the JAX package's associative scan of ``_pair_wins``)."""
+    segments (the JAX package's associative scan of ``pair_wins``)."""
 
     def combine(a, b):
         ay, ax = a
         by, bx = b
-        win = _pair_wins(op, ay, ax, by, bx)
+        win = pair_wins(op, ay, ax, by, bx)
         return torch.where(win, by, ay), torch.where(win, bx, ax)
 
     return _log_step_scan((y, x), boundary, combine)
@@ -498,9 +498,11 @@ class SortedRuns:
         v = _with_identity(values, value_mask & self.mask, op)
         if op == "sum" and v.dtype.is_floating_point:
             # a float run sum adds only its own rows (one scatter-add into
-            # run slots), so its rounding scales with the run, not with the
-            # prefix before it: the power sums of a variance or kurtosis
-            # cancel, and a prefix-sum difference leaves them noise
+            # run slots), for two reasons: a prefix-sum difference rounds
+            # with the whole tile's prefix before the run, not with the run,
+            # and one inf or NaN in the prefix turns every later run's sum
+            # into NaN (test_torch_sort.py).  The atomic adds land in no
+            # fixed order, so a sum's last bits depend on that order
             gid = self.run_index.clamp(0, max(self.capacity - 1, 0))
             return torch.zeros_like(v).index_add_(0, gid, v)
         if op == "sum":
