@@ -43,7 +43,8 @@ data is the same in every run.  The script
    carry merge is held against the oracle too.  These paths launch none of
    the hand-written kernels (the JAX package has no Pallas kernel on them);
 8. runs the other eighteen TPC-H plans (``tpch_plans``: one line each; Q21's
-   at SF 1 when ``--sf`` is larger, ``PLANS_AT_SF1``) and
+   at SF 1 in tiles of 2^20 rows when ``--sf`` is larger, ``PLANS_AT_SF1``,
+   where its carries overflow into the host merge as at SF 10) and
    all 22 SQL texts through the SQL front end (``tpch_sql``: one line each;
    expansion joins, scalar subqueries, filtered LEFT and semi / anti joins,
    distinct counts; the texts of ``SQL_AT_SF1`` at SF 1 when ``--sf`` is
@@ -64,7 +65,7 @@ data is the same in every run.  The script
    queries' oracles; W3, a window over every ``orders`` row by customer; W4,
    one over every ``lineitem`` row by order, cut into passes of whole
    partitions; F1 and F2, FULL joins plain and with a non-equi condition;
-   W3, W4, F1 and F2 at SF 1 when ``--sf`` is larger, ``WINDOW_AT_SF1``;
+   W3, W4 and F2 at SF 1 when ``--sf`` is larger, ``WINDOW_AT_SF1``;
    U1, UNION ALL; N1, a join with no equality) and the two ``window_plan``
    plans (a MergeExchange of two sorted ``orders`` branches, and
    ``topn_row_number``), each row-exact against its numpy oracle, with the
@@ -79,7 +80,9 @@ data is the same in every run.  The script
    sums past 2^63, avg and a long-decimal division; T1, time zones; W5, a
    window over every
    ``orders`` row with NULL partition and order keys, then again at SF 1 in
-   passes of whole partitions of 2^18 rows, for its rows only), each
+   passes of whole partitions of 2^18 rows, for its rows only; A2 again at
+   SF 1 in tiles of 2^20 rows, for its rows only, its carry overflowing
+   into the host merge), each
    row-exact against its numpy oracle (``function_oracle``) and timed like
    the window slice; none of them launches a hand-written kernel;
 11. prints a ``summary`` line (every query's time in one place), the
@@ -118,18 +121,21 @@ LONG_QUERY_S = 10.0
 # 60 M lineitem rows).  Their hand-built plans run at ``--sf``; the texts run
 # at SF 1 when ``--sf`` is larger, to keep the script inside its time.
 SQL_AT_SF1 = (3, 5, 7, 8, 10, 13, 18, 21)
-# plans that run at SF 1 when ``--sf`` is larger: TPC-H Q21's plan took 51 s
-# a run at SF 10 with an H100, nearly all of it a host merge of about 60 M
-# partial groups, and the function slice needs the script's time
-PLANS_AT_SF1 = (21,)
+# plans that run at SF 1 when ``--sf`` is larger, with their tile rows there:
+# TPC-H Q21's plan took 51 s a run at SF 10 with an H100, nearly all of it a
+# host merge of about 60 M partial groups, and the function slice needs the
+# script's time.  At SF 1 in tiles of 2^20 rows its barriers' carries (at
+# most a tile's rows) still overflow into that host merge (asserted)
+PLANS_AT_SF1 = {21: 1 << 20}
 # window-slice texts that run at SF 1 when ``--sf`` is larger, with their
 # tile rows there: W4 over every SF-10 ``lineitem`` row took 20 s a run with
 # an H100 (about 2 minutes with its oracle and profiled run); at SF 1, 6 M
 # rows in tiles of 2^21 are still cut into window passes of whole partitions.
-# W3 (12 s a run at SF 10, 100 s with its oracle and profiled run), F1 and
-# F2 (3.5 s and 10 s a run) follow, so that the function slice fits the
-# script's time; W5 keeps a window over every SF-10 ``orders`` row
-WINDOW_AT_SF1 = {"W4": 1 << 21, "W3": 1 << 24, "F1": 1 << 24, "F2": 1 << 24}
+# W3 (12 s a run at SF 10, 100 s with its oracle and profiled run) and F2
+# (10 s a run, 46 s in all) follow, so that the function slice fits the
+# script's time; F1 (19 s in all) stays at SF 10, and W5 keeps a window over
+# every SF-10 ``orders`` row
+WINDOW_AT_SF1 = {"W4": 1 << 21, "W3": 1 << 24, "F2": 1 << 24}
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +388,11 @@ FUNCTION_COLUMNS = {
 # W5 runs a second time at SF 1 in these tile rows (rows only), so that the
 # window source's passes of whole partitions meet the NULL partition
 W5_CHUNKED_TILE_ROWS = 1 << 18
+# A2 runs a second time at SF 1 in these tile rows (rows only): its 1.5 M
+# orders pass the carry's slots (at most a tile's rows), so the partial
+# groups of every new aggregate overflow into the host merge
+# (``host_merge_sorted``; asserted)
+A2_HOST_MERGE_TILE_ROWS = 1 << 20
 
 
 def _col(table, name):
@@ -1594,6 +1605,7 @@ def run_tpch(num: int, tables, tile_rows: int, runs: int, want=None, sql=False):
         device_peak_bytes_first_run=torch.cuda.max_memory_allocated(), **expansion_report(ex),
         carry_groups=ex.carry_groups, carry_overflowed=ex.carry_overflowed,
         groups_out=ex.groups_out, pool_peak_bytes=ex.pool.peak,
+        aggregations=aggregation_report(ex),
     )
     fields = dict(num=num, **rep, **first, oracle_s=oracle_s, result_rows=int(len(got)),
                   correct=True)
@@ -1622,6 +1634,18 @@ def run_tpch(num: int, tables, tile_rows: int, runs: int, want=None, sql=False):
         query_top_kernels=top, k2_launches=grouped_piece_sums.launches - k2_before,
     )
     return fields, want
+
+
+def aggregation_report(ex):
+    """Kind, carry slots, overflow and groups out of every aggregation an
+    executor's last run ran: its barriers' (``barrier_aggregations``), then
+    its own."""
+    return [
+        dict(kind=k, carry_groups=g, carry_overflowed=o, groups_out=n)
+        for k, g, o, n in ex.barrier_aggregations
+    ] + ([dict(kind=ex.kind, carry_groups=ex.carry_groups,
+               carry_overflowed=ex.carry_overflowed, groups_out=ex.groups_out)]
+         if ex.agg_exec is not None else [])
 
 
 def run_slice_text(name: str, cache, tile_rows: int, want=None, rows_only=False):
@@ -1686,12 +1710,7 @@ def run_slice_text(name: str, cache, tile_rows: int, want=None, rows_only=False)
         kind=ex.kind, window_passes=len(ex.window_chunks),
         window_largest_pass_rows=max((r for _, r in ex.window_chunks), default=0),
         window_largest_pass_capacity=max((c for c, _ in ex.window_chunks), default=0),
-        **expansion_report(ex), aggregations=[
-            dict(kind=k, carry_groups=g, carry_overflowed=o, groups_out=n)
-            for k, g, o, n in ex.barrier_aggregations
-        ] + ([dict(kind=ex.kind, carry_groups=ex.carry_groups,
-                   carry_overflowed=ex.carry_overflowed, groups_out=ex.groups_out)]
-             if ex.agg_exec is not None else []),
+        **expansion_report(ex), aggregations=aggregation_report(ex),
         device_peak_bytes_first_run=peak,
         oracle_s=oracle_s, correct=True,
     )
@@ -1879,8 +1898,10 @@ def main() -> int:
         if num in (1, 3, 6, 13):
             continue
         if num in PLANS_AT_SF1 and args.sf > 1:
-            fields, _ = run_tpch(num, small.for_query(num), args.tile_rows, args.runs)
-            say("tpch_plans", sf=small.sf, **fields)
+            fields, _ = run_tpch(num, small.for_query(num), PLANS_AT_SF1[num], args.runs)
+            # the sort-mode carry overflows into the host merge, as at SF 10
+            assert any(a["carry_overflowed"] for a in fields["aggregations"]), fields
+            say("tpch_plans", sf=small.sf, tile_rows=PLANS_AT_SF1[num], **fields)
         else:
             fields, oracles[num] = run_tpch(num, cache.for_query(num), args.tile_rows, args.runs)
             say("tpch_plans", sf=args.sf, **fields)
@@ -1932,6 +1953,10 @@ def main() -> int:
                                         fields["query_device_busy_ms"]]
     fields, _ = run_slice_text("W5", small, W5_CHUNKED_TILE_ROWS, rows_only=True)
     assert fields["window_passes"] > 1, fields
+    say("tpch_functions", **fields)
+    fields, _ = run_slice_text("A2", small, A2_HOST_MERGE_TILE_ROWS, rows_only=True)
+    [agg] = fields["aggregations"]
+    assert agg["kind"] == "sort_agg_device" and agg["carry_overflowed"], agg
     say("tpch_functions", **fields)
     assert before == dict((name, w.launches) for name, w in wrappers.items())
     say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)

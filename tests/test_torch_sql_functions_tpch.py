@@ -93,6 +93,24 @@ def test_a2_goes_through_the_device_carry_merge():
     cs.check_window_rows(rows, *cs.function_oracle("A2", tables))
 
 
+def test_a2_overflows_into_the_host_merge():
+    """A2 in 2^12-row tiles: the carry (at most a tile's rows) cannot hold
+    15 000 orders, so the partial groups of min_by, max_by, var_samp, corr
+    and bool_or merge on the host (``host_merge_sorted``); the rows are the
+    oracle's and the JAX package's, which overflows the same way."""
+    ref_tables, tables = _tables(cs.FUNCTION_COLUMNS["A2"])
+    ex = LocalExecutor(plan_sql(cs.FUNCTION_SQL["A2"], tables), tile_rows=1 << 12, device="cpu")
+    rows = ex.run()
+    [(kind, carry_groups, overflowed, groups_out)] = ex.barrier_aggregations
+    assert kind == "sort_agg_device" and carry_groups == 1 << 12 and overflowed
+    assert groups_out == 15000
+    oracle = cs.function_oracle("A2", tables)
+    cs.check_window_rows(rows, *oracle)
+    want = ref_run_sql(cs.FUNCTION_SQL["A2"], ref_tables, tile_rows=1 << 12)
+    _reference_off_only_where_it_cancels(rows, want, oracle)
+    assert_same_rows(rows, want)
+
+
 def test_d1_sums_pass_int64():
     """D1's sums are exact past 2^63 (the reason the text exists)."""
     _, tables = _tables(cs.FUNCTION_COLUMNS["D1"])
