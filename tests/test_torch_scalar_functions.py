@@ -324,6 +324,13 @@ LATER.update({name: 6 for name in (
 )})
 
 
+# registered into the JAX package's registry by its sketch rewrite
+# (``velox_tpu/exec/sketch.py _register_hll_functions``) the first time a
+# plan uses approx_distinct or the DDSketch approx_percentile; they come
+# with the sketches (ROADMAP Queue 1 item 6)
+SKETCH = {"hll_bucket64", "hll_rho64", "dd_bucket64"}
+
+
 def _public(registry):
     # zone-specialised functions (``__tz_...``) are registered on use
     return {n for n in registry._functions if not n.startswith("__")}
@@ -335,13 +342,17 @@ def test_registered_names_match_reference():
     name that both a later module and the Presto scalars register (``concat``,
     ``date_add``, ``from_unixtime``, ``reverse``) is here with its Presto
     overloads."""
-    assert _public(PORT_REGISTRY) == _public(REF_REGISTRY) - set(LATER)
+    from velox_tpu.exec.sketch import _register_hll_functions
+
+    _register_hll_functions()  # as after any earlier sketch plan in this process
+    assert SKETCH <= _public(REF_REGISTRY)
+    assert _public(PORT_REGISTRY) == _public(REF_REGISTRY) - set(LATER) - SKETCH
     for module, item in (("presto.complex", 5), ("spark.scalar", 6)):
         owned = {
             n for n, sigs in REF_REGISTRY._functions.items()
             if all(sig.impl.__module__.endswith(module) for sig in sigs)
         }
         assert owned == {n for n, i in LATER.items() if i == item}
-    for name in LATER:
+    for name in (*LATER, *SKETCH):
         with pytest.raises(KeyError, match=name):
             PORT_REGISTRY.resolve(name, [])
