@@ -82,10 +82,22 @@ data is the same in every run.  The script
    ``orders`` row with NULL partition and order keys, then again at SF 1 in
    passes of whole partitions of 2^18 rows, for its rows only; A2 again at
    SF 1 in tiles of 2^20 rows, for its rows only, its carry overflowing
-   into the host merge), each
+   into the host merge; A1 and S1 at SF 1 in tiles of 2^21 rows when
+   ``--sf`` is larger, ``FUNCTION_AT_SF1``), each
    row-exact against its numpy oracle (``function_oracle``) and timed like
    the window slice; none of them launches a hand-written kernel;
-11. prints a ``summary`` line (every query's time in one place), the
+11. runs the complex-type slice (``tpch_complex``: one line each) over the
+   same tables: the SQL texts of ``COMPLEX_SQL`` and the plans of
+   ``complex_plan`` (C1, four collect aggregates over every ``orders`` row;
+   C2, array constructors with lambdas over every ``lineitem`` row; C3,
+   ROLLUP through GroupId; C4, a VARCHAR cast as grouping key; C5,
+   ``array_join`` over a collect, at SF 1 when ``--sf`` is larger,
+   ``COMPLEX_AT_SF1``; C6, arrays of about 8.5 M elements back on the card;
+   C7, ``split`` + Unnest; C8, a collect feeding an Unnest), each against
+   its numpy oracle (``check_complex``), with its largest element pool, its
+   render time and the path it is there for (asserted); none of them
+   launches a hand-written kernel;
+12. prints a ``summary`` line (every query's time in one place), the
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line; any failure ends the run with a traceback
@@ -388,6 +400,13 @@ FUNCTION_COLUMNS = {
 # W5 runs a second time at SF 1 in these tile rows (rows only), so that the
 # window source's passes of whole partitions meet the NULL partition
 W5_CHUNKED_TILE_ROWS = 1 << 18
+# function texts that run at SF 1 when ``--sf`` is larger, with their tile
+# rows there: with the complex slice the script took 1 094 s of its 1 200
+# with an H100 (call 2 of the complex slice), A1 44.8 s and S1 39.8 s of it
+# with their oracles and profiled runs; in 2^21-row tiles SF-1 lineitem is 3
+# tiles, so A1 still accumulates across tiles in direct mode and S1's sort-mode
+# partials still go through the device carry merge (both asserted)
+FUNCTION_AT_SF1 = {"A1": 1 << 21, "S1": 1 << 21}
 # A2 runs a second time at SF 1 in these tile rows (rows only): its 1.5 M
 # orders pass the carry's slots (at most a tile's rows), so the partial
 # groups of every new aggregate overflow into the host merge
@@ -1001,6 +1020,270 @@ def function_oracle(name: str, tables):
     raise KeyError(name)
 
 
+# ---------------------------------------------------------------------------
+# The complex-type slice: ARRAY / MAP values, lambdas, GroupId, Unnest, the
+# collect aggregates and string construction, over the TPC-H tables, each
+# text held against its numpy oracle (``check_complex``).  The tests run the
+# same texts and plans through both packages at SF 0.01.  C2's reduce starts
+# from cast(0 as double): from the BIGINT 0 (or the DECIMAL(2,1) 0.0) the
+# state's type and the lambda's DECIMAL(18,4) result differ, which Presto
+# refuses at planning, and both packages then carry the raw unscaled integer
+# from step to step (ROADMAP Queue 3).
+
+COMPLEX_SQL = {
+    # four collect aggregates over 15 M orders, about 1 M groups
+    "C1": """
+select o_custkey, array_agg(o_totalprice) as prices, set_agg(o_orderpriority) as prios,
+       histogram(o_orderstatus) as hist, map_agg(o_orderkey, o_shippriority) as ship
+  from orders group by o_custkey
+""",
+    # array constructors, lambdas and per-row reductions over 60 M lineitem rows
+    "C2": """
+select l_returnflag, count(*) as n,
+       sum(cardinality(filter(array[l_quantity, l_tax, l_discount], x -> x > 0))) as pos,
+       sum(reduce(transform(array[l_quantity, l_discount], x -> x * 2), cast(0 as double),
+                  (s, x) -> s + x, s -> s)) as red
+  from lineitem group by l_returnflag
+""",
+    # GroupId: three grouping sets
+    "C3": """
+select l_returnflag, l_linestatus, sum(l_quantity) as q, count(*) as n
+  from lineitem group by rollup(l_returnflag, l_linestatus)
+""",
+    # a numeric key rendered as VARCHAR on the host
+    "C4": """
+select cast(l_linenumber as varchar) as ln, count(*) as n
+  from lineitem group by cast(l_linenumber as varchar)
+""",
+    # a collect rendered by array_join
+    "C5": """
+select o_custkey, array_join(array_agg(o_orderpriority), ',') as prios
+  from orders group by o_custkey
+""",
+    # seven arrays of about 8.5 M elements back on the card
+    "C6": """
+select l_shipmode, cardinality(array_distinct(array_agg(l_linenumber))) as nd,
+       element_at(array_sort(array_agg(l_quantity)), 1) as qmin
+  from lineitem group by l_shipmode
+""",
+}
+COMPLEX_COLUMNS = {
+    "C1": {"orders": ("o_custkey", "o_totalprice", "o_orderpriority", "o_orderstatus",
+                      "o_orderkey", "o_shippriority")},
+    "C2": {"lineitem": ("l_returnflag", "l_quantity", "l_tax", "l_discount")},
+    "C3": {"lineitem": ("l_returnflag", "l_linestatus", "l_quantity")},
+    "C4": {"lineitem": ("l_linenumber",)},
+    "C5": {"orders": ("o_custkey", "o_orderpriority")},
+    "C6": {"lineitem": ("l_shipmode", "l_linenumber", "l_quantity")},
+    "C7": {"part": ("p_name",)},
+    "C8": {"lineitem": ("l_orderkey", "l_partkey")},
+}
+# texts that run at SF 1 when ``--sf`` is larger, with their tile rows there:
+# C5's render is a Python loop over every element (``exec/strcast.py
+# _render_array_join``): at SF 10 a run took 18.2 s with an H100, 16.1 s of
+# it the render, and 43.7 s with its oracle and profiled run; at SF 1 its 1.5 M
+# elements still go through the collect and the render (asserted)
+COMPLEX_AT_SF1 = {"C5": 1 << 24}
+
+
+def complex_plan(name: str, builder, tables):
+    """C7: ``part`` -> split(p_name, ' ') -> unnest with ordinality -> per
+    word the count and the last position; C8: ``lineitem`` ->
+    array_agg(l_partkey) by order -> unnest with ordinality -> sums, count
+    and the longest order (a collect feeding an unnest)."""
+    if name == "C7":
+        return (
+            builder().table_scan(tables["part"]).project(["split(p_name, ' ') as words"])
+            .unnest([], ["words"], ordinality="pos")
+            .aggregation(["words"], ["count(*) as n", "max(pos) as last_pos"]).build()
+        )
+    if name == "C8":
+        return (
+            builder().table_scan(tables["lineitem"])
+            .aggregation(["l_orderkey"], ["array_agg(l_partkey) as parts"])
+            .unnest(["l_orderkey"], ["parts"], ordinality="pos")
+            .project(["parts", "pos", "parts * pos as w"])
+            .aggregation([], ["sum(parts) as s", "count(*) as n", "max(pos) as m",
+                              "sum(w) as sw"]).build()
+        )
+    raise KeyError(name)
+
+
+def _groups(keys):
+    """(order, starts, group keys) of a stable sort by ``keys``."""
+    import numpy as np
+
+    order = np.argsort(keys, kind="stable")
+    ks = keys[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]]) if len(ks) else np.zeros(0, np.int64)
+    return order, starts, ks[starts]
+
+
+def _decimal_ints(result, name):
+    """A DECIMAL result column as Python ints (short: int64; long: limbs)."""
+    import numpy as np
+
+    arr = np.asarray(result.columns[name])
+    if arr.ndim == 2:
+        return [(int(h) << 64) + (int(lo) & ((1 << 64) - 1)) for lo, h in arr]
+    return [int(v) for v in arr]
+
+
+def _by_key(result, key):
+    """Row order of a result sorted by a non-NULL integer key column."""
+    import numpy as np
+
+    return np.argsort(np.asarray(result.columns[key]), kind="stable")
+
+
+def check_complex(name: str, result, tables):
+    """Hold the result Table of a complex text to its numpy oracle: integers,
+    decimals, dates, strings and array contents exactly (``array_agg`` in
+    input order within each group, set-like results as sorted sets), DOUBLE
+    to rtol 1e-9.  Returns facts of the check (groups, elements)."""
+    import numpy as np
+
+    if name in ("C1", "C5"):
+        o_t = tables["orders"]
+        order, starts, keys = _groups(np.asarray(o_t.columns["o_custkey"]))
+        sizes = np.diff(np.append(starts, len(order)))
+        gids = np.repeat(np.arange(len(keys)), sizes)
+        ro = _by_key(result, "o_custkey")
+        assert np.array_equal(np.asarray(result.columns["o_custkey"])[ro], keys)
+        if name == "C5":
+            prio = _strings(o_t, "o_orderpriority")[order]
+            want = [",".join(p) for p in np.split(prio, starts[1:])] if len(order) else []
+            got = result.string_tables["prios"].decode(np.asarray(result.columns["prios"])[ro])
+            assert list(got) == want, name
+            return dict(groups=len(keys), elements=len(order))
+        prices = result.columns["prices"].take_rows(ro)
+        assert np.array_equal(prices.sizes, sizes)
+        assert np.array_equal(prices.children[0], np.asarray(o_t.columns["o_totalprice"])[order])
+        assert prices.child_validities[0] is None
+        # set_agg and histogram are held as sorted sets: (group, string rank)
+        # pairs in order on both sides, counted by one bincount
+        for col, src_col in (("prios", "o_orderpriority"), ("hist", "o_orderstatus")):
+            table = o_t.string_tables[src_col]
+            rank = np.asarray(table.sort_permutation(), np.int64)
+            width = len(rank)
+            codes = np.asarray(o_t.columns[src_col]).astype(np.int64)[order]
+            counts = np.bincount(gids * width + rank[codes], minlength=len(keys) * width)
+            present = np.flatnonzero(counts)
+            seg = result.columns[col].take_rows(ro)
+            rank_of = dict(zip(table.values(), rank))
+            lut = np.asarray([rank_of.get(s, -1) for s in seg.string_tables[0].values()], np.int64)
+            seg_gids = np.repeat(np.arange(len(seg.sizes)), np.asarray(seg.sizes, np.int64))
+            got = seg_gids * width + lut[np.asarray(seg.children[0]).astype(np.int64)]
+            o = np.argsort(got, kind="stable")
+            assert np.array_equal(got[o], present), col
+            if col == "hist":
+                assert np.array_equal(np.asarray(seg.children[1])[o], counts[present]), "hist counts"
+        ship = result.columns["ship"].take_rows(ro)
+        okey = np.asarray(o_t.columns["o_orderkey"]).astype(np.int64)[order]
+        o = np.argsort(gids * (int(okey.max(initial=0)) + 1) + okey, kind="stable")
+        assert np.array_equal(ship.sizes, sizes)
+        assert np.array_equal(ship.children[0], okey[o])
+        assert np.array_equal(ship.children[1], np.asarray(o_t.columns["o_shippriority"])[order][o])
+        return dict(groups=len(keys), elements=len(order))
+    li = tables.get("lineitem")
+    if name == "C2":
+        flags, keys = _code_groups(li, "l_returnflag")
+        q, t, d = (np.asarray(li.columns[c]).astype(np.int64)
+                   for c in ("l_quantity", "l_tax", "l_discount"))
+        n = np.bincount(flags, minlength=len(keys))
+        pos = np.bincount(flags, weights=(q > 0).astype(np.int64) + (t > 0) + (d > 0),
+                          minlength=len(keys)).astype(np.int64)
+        red = np.bincount(flags, weights=(0.0 + q * 200 / 1e4) + d * 200 / 1e4, minlength=len(keys))
+        want = {k[0]: (int(a), int(b), float(c)) for k, a, b, c in zip(keys, n, pos, red)}
+        got_rf = result.string_tables["l_returnflag"].decode(np.asarray(result.columns["l_returnflag"]))
+        assert sorted(got_rf) == sorted(want), name
+        for i, flag in enumerate(got_rf):
+            wn, wpos, wred = want[flag]
+            assert int(result.columns["n"][i]) == wn, (name, flag)
+            assert int(result.columns["pos"][i]) == wpos, (name, flag)
+            assert abs(float(result.columns["red"][i]) - wred) <= 1e-9 * abs(wred), (name, flag)
+        return dict(groups=len(keys))
+    if name == "C3":
+        pairs, keys = _code_groups(li, "l_returnflag", "l_linestatus")
+        q = np.asarray(li.columns["l_quantity"]).astype(np.float64)  # exact below 2^53
+        sums = np.bincount(pairs, weights=q, minlength=len(keys)).astype(np.int64)
+        counts = np.bincount(pairs, minlength=len(keys))
+        want = {k: (int(s), int(c)) for k, s, c in zip(keys, sums, counts)}
+        for a in {k[0] for k in keys}:
+            m = [i for i, k in enumerate(keys) if k[0] == a]
+            want[(a, None)] = (int(sums[m].sum()), int(counts[m].sum()))
+        want[(None, None)] = (int(sums.sum()), int(counts.sum()))
+
+        def col(c):
+            v = result.validities.get(c)
+            s = result.string_tables[c].decode(np.asarray(result.columns[c]))
+            return [x if v is None or v[i] else None for i, x in enumerate(s)]
+
+        got = {k: (s, int(n)) for k, s, n in zip(
+            zip(col("l_returnflag"), col("l_linestatus")), _decimal_ints(result, "q"),
+            np.asarray(result.columns["n"]))}
+        assert got == want, name
+        return dict(groups=len(want))
+    if name == "C4":
+        counts = np.bincount(np.asarray(li.columns["l_linenumber"]).astype(np.int64))
+        want = {str(i): int(c) for i, c in enumerate(counts) if c}
+        got = dict(zip(result.string_tables["ln"].decode(np.asarray(result.columns["ln"])),
+                       (int(n) for n in result.columns["n"])))
+        assert got == want, name
+        return dict(groups=len(want))
+    if name == "C6":
+        modes, keys = _code_groups(li, "l_shipmode")
+        ln = np.asarray(li.columns["l_linenumber"]).astype(np.int64)
+        q = np.asarray(li.columns["l_quantity"]).astype(np.int64)
+        width = int(ln.max()) + 1
+        distinct = np.bincount(np.unique(modes * width + ln) // width, minlength=len(keys))
+        qmin = np.full(len(keys), np.iinfo(np.int64).max)
+        np.minimum.at(qmin, modes, q)
+        want = {k[0]: (int(a), int(b)) for k, a, b in zip(keys, distinct, qmin)}
+        got_mode = result.string_tables["l_shipmode"].decode(np.asarray(result.columns["l_shipmode"]))
+        assert sorted(got_mode) == sorted(want), name
+        qmins = _decimal_ints(result, "qmin")
+        for i, m_name in enumerate(got_mode):
+            assert (int(result.columns["nd"][i]), qmins[i]) == want[m_name], (name, m_name)
+        return dict(groups=len(keys), elements=len(modes))
+    if name == "C7":
+        part = tables["part"]
+        codes = np.asarray(part.columns["p_name"]).astype(np.int64)
+        names = part.string_tables["p_name"].values()
+        per_code = np.bincount(codes, minlength=len(names))
+        words, owner, pos = {}, [], []
+        word_id = []
+        for c, text in enumerate(names):
+            if not per_code[c] or not text:
+                continue
+            for j, w in enumerate(text.split(" ")):
+                word_id.append(words.setdefault(w, len(words)))
+                owner.append(c)
+                pos.append(j + 1)
+        word_id, owner, pos = (np.asarray(a, np.int64) for a in (word_id, owner, pos))
+        count = np.bincount(word_id, weights=per_code[owner], minlength=len(words)).astype(np.int64)
+        last = np.zeros(len(words), np.int64)
+        np.maximum.at(last, word_id, pos)
+        got_w = result.string_tables["words"].decode(np.asarray(result.columns["words"]))
+        assert sorted(got_w) == sorted(words), name
+        ids = np.asarray([words[w] for w in got_w], np.int64)
+        assert np.array_equal(np.asarray(result.columns["n"]), count[ids]), name
+        assert np.array_equal(np.asarray(result.columns["last_pos"]), last[ids]), name
+        return dict(groups=len(words), elements=int(count.sum()))
+    if name == "C8":
+        ok = np.asarray(li.columns["l_orderkey"])
+        pk = np.asarray(li.columns["l_partkey"]).astype(np.int64)
+        order, starts, _ = _groups(ok)
+        sizes = np.diff(np.append(starts, len(order)))
+        rank = np.arange(len(order)) - np.repeat(starts, sizes) + 1
+        got = {c: int(result.columns[c][0]) for c in ("s", "n", "m", "sw")}
+        want = dict(s=int(pk.sum()), n=len(pk), m=int(sizes.max()),
+                    sw=int((pk[order] * rank).sum()))
+        assert got == want, (name, got, want)
+        return dict(groups=len(starts), elements=len(pk))
+    raise KeyError(name)
+
+
 def say(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -1363,7 +1646,8 @@ class TpchTables:
         self.sf = sf
         self.columns = {}
         for cols in (*QUERY_COLUMNS.values(), *WINDOW_COLUMNS.values(),
-                     *WINDOW_PLAN_COLUMNS.values(), *FUNCTION_COLUMNS.values()):
+                     *WINDOW_PLAN_COLUMNS.values(), *FUNCTION_COLUMNS.values(),
+                     *COMPLEX_COLUMNS.values()):
             for name, names in cols.items():
                 self.columns.setdefault(name, set()).update(names)
         self._tables = {}
@@ -1648,6 +1932,22 @@ def aggregation_report(ex):
          if ex.agg_exec is not None else [])
 
 
+def _plan_kinds(plan):
+    """The GroupId / Unnest nodes of a plan, top down: GroupId with its set
+    count, Unnest with its unnested columns."""
+    from velox_tpu_torch.plan.nodes import GroupIdNode, UnnestNode
+
+    out, stack = [], [plan]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, GroupIdNode):
+            out.append(f"GroupId(sets={len(node.grouping_sets)})")
+        elif isinstance(node, UnnestNode):
+            out.append(f"Unnest({','.join(node.unnest)})")
+        stack.extend(node.sources)
+    return out
+
+
 def run_slice_text(name: str, cache, tile_rows: int, want=None, rows_only=False):
     """One text of ``WINDOW_SQL`` / ``FUNCTION_SQL`` (planned by
     ``plan_sql``) or one of the two ``window_plan`` plans over the tables of
@@ -1668,8 +1968,12 @@ def run_slice_text(name: str, cache, tile_rows: int, want=None, rows_only=False)
     from velox_tpu_torch.plan import PlanBuilder
     from velox_tpu_torch.sql import plan_sql
 
-    is_plan = name in WINDOW_PLAN_COLUMNS
-    if is_plan:
+    from velox_tpu_torch.vector.complex import largest_pool, reset_pool_record
+
+    is_plan = name in WINDOW_PLAN_COLUMNS or (name in COMPLEX_COLUMNS and name not in COMPLEX_SQL)
+    if name in COMPLEX_COLUMNS:
+        columns = COMPLEX_COLUMNS[name]
+    elif is_plan:
         columns = WINDOW_PLAN_COLUMNS[name]
     elif name in FUNCTION_SQL:
         columns = FUNCTION_COLUMNS[name]
@@ -1679,8 +1983,12 @@ def run_slice_text(name: str, cache, tile_rows: int, want=None, rows_only=False)
         columns = WINDOW_COLUMNS[name]
     tables = {t: cache.table(t).select(list(c)) for t, c in columns.items()}
     t0 = time.perf_counter()
-    plan = (window_plan(name, PlanBuilder, tables) if is_plan
-            else plan_sql(FUNCTION_SQL.get(name) or WINDOW_SQL[name], tables))
+    if name in COMPLEX_COLUMNS:
+        plan = (complex_plan(name, PlanBuilder, tables) if is_plan
+                else plan_sql(COMPLEX_SQL[name], tables))
+    else:
+        plan = (window_plan(name, PlanBuilder, tables) if is_plan
+                else plan_sql(FUNCTION_SQL.get(name) or WINDOW_SQL[name], tables))
     plan_s = time.perf_counter() - t0
 
     def once():
@@ -1689,12 +1997,19 @@ def run_slice_text(name: str, cache, tile_rows: int, want=None, rows_only=False)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_pool_record()
     t0 = time.perf_counter()
     ex, result = once()
     walls = [(time.perf_counter() - t0) * 1e3]
     peak = torch.cuda.max_memory_allocated()
+    pool_capacity, pool_elements = largest_pool()
     t0 = time.perf_counter()
-    if name in WINDOW_QUERY:
+    extra = {}
+    if name in COMPLEX_COLUMNS:
+        extra = dict(check=check_complex(name, result, tables),
+                     largest_pool_elements=pool_elements, largest_pool_capacity=pool_capacity,
+                     render_s=ex.render_seconds, plan_node_kinds=_plan_kinds(plan))
+    elif name in WINDOW_QUERY:
         _, want = check_frame(WINDOW_QUERY[name], result, tables, want=want, sql=True)
     elif is_plan:
         check_window_rows(result, *window_plan_oracle(name, tables))
@@ -1712,14 +2027,17 @@ def run_slice_text(name: str, cache, tile_rows: int, want=None, rows_only=False)
         window_largest_pass_capacity=max((c for c, _ in ex.window_chunks), default=0),
         **expansion_report(ex), aggregations=aggregation_report(ex),
         device_peak_bytes_first_run=peak,
-        oracle_s=oracle_s, correct=True,
+        oracle_s=oracle_s, correct=True, **extra,
     )
     del ex, result
     torch.cuda.empty_cache()
     if rows_only:
         fields.update(first_run_ms=walls[0])
         return fields, want
-    for _ in range(WHOLE_RUNS - 1):
+    # a complex text whose first run passes LONG_QUERY_S is timed by that
+    # run alone; its profiled run still gives the device time
+    long_run = name in COMPLEX_COLUMNS and walls[0] > LONG_QUERY_S * 1e3
+    for _ in range(0 if long_run else WHOLE_RUNS - 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         once()
@@ -1942,7 +2260,17 @@ def main() -> int:
     # hand-written kernels, and must not.
     before = dict((name, w.launches) for name, w in wrappers.items())
     for name in FUNCTION_SQL:
-        fields, _ = run_slice_text(name, cache, args.tile_rows)
+        if name in FUNCTION_AT_SF1 and args.sf > 1:
+            fields, _ = run_slice_text(name, small, FUNCTION_AT_SF1[name])
+            [agg] = fields["aggregations"]
+            tiles = -(-fields["rows_in"]["lineitem"] // FUNCTION_AT_SF1[name])
+            assert tiles > 1, fields
+            if name == "S1":
+                assert agg["kind"] == "sort_agg_device" and agg["carry_groups"], agg
+            else:
+                assert agg["kind"] == "direct_agg", agg
+        else:
+            fields, _ = run_slice_text(name, cache, args.tile_rows)
         if name == "A2":
             [agg] = fields["aggregations"]
             assert agg["kind"] == "sort_agg_device" and not agg["carry_overflowed"], agg
@@ -1958,6 +2286,35 @@ def main() -> int:
     [agg] = fields["aggregations"]
     assert agg["kind"] == "sort_agg_device" and agg["carry_overflowed"], agg
     say("tpch_functions", **fields)
+    assert before == dict((name, w.launches) for name, w in wrappers.items())
+
+    # ---- the complex-type slice: collect aggregates (C1, C5, C6, C8),
+    # array constructors and lambdas (C2), GroupId (C3), a VARCHAR cast key
+    # rendered on the host (C4), array_join (C5), a collect back on the card
+    # (C6), split + Unnest (C7), a collect feeding an Unnest (C8).  They
+    # launch none of the hand-written kernels, and must not.  A text cut to
+    # SF 1 (``COMPLEX_AT_SF1``) still asserts the path it is there for.
+    before = dict((name, w.launches) for name, w in wrappers.items())
+    for name in [*COMPLEX_SQL, "C7", "C8"]:
+        if name in COMPLEX_AT_SF1 and args.sf > 1:
+            fields, _ = run_slice_text(name, small, COMPLEX_AT_SF1[name])
+        else:
+            fields, _ = run_slice_text(name, cache, args.tile_rows)
+        kinds = [a["kind"] for a in fields["aggregations"]]
+        if name in ("C1", "C5", "C6", "C8"):
+            assert "collect_agg" in kinds, fields
+        if name == "C3":
+            assert fields["plan_node_kinds"] == ["GroupId(sets=3)"], fields
+        if name in ("C7", "C8"):
+            # the oracle holds every unnested row (C7: the word counts, C8:
+            # the row count); the unnest batch is the largest pool
+            assert any(k.startswith("Unnest") for k in fields["plan_node_kinds"]), fields
+            assert 0 < fields["largest_pool_elements"] <= fields["check"]["elements"], fields
+        if name == "C5":
+            assert fields["render_s"] > 0, fields
+        say("tpch_complex", **fields)
+        summary[f"complex {name}"] = [None, None, fields["build_s"], fields["query_ms"],
+                                      fields["query_device_busy_ms"]]
     assert before == dict((name, w.launches) for name, w in wrappers.items())
     say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)
 

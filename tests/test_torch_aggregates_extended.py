@@ -31,7 +31,7 @@ from velox_tpu.exec.aggregates import AGGREGATE_NAMES as REF_NAMES
 from velox_tpu.exec.runner import LocalExecutor as RefExecutor
 from velox_tpu.io.table import Table as RefTable
 from velox_tpu.plan import PlanBuilder as RefBuilder
-from velox_tpu_torch.dtypes import BIGINT
+from velox_tpu_torch.dtypes import BIGINT, map_
 from velox_tpu_torch.exec.aggregates import AGGREGATE_NAMES, bind_aggregate
 from velox_tpu_torch.exec.runner import LocalExecutor as PortExecutor
 from velox_tpu_torch.plan import PlanBuilder as PortBuilder
@@ -235,15 +235,26 @@ def test_checksum_order_independent():
 
 
 def test_aggregate_names_match_reference():
-    """The port binds every name of the reference's ``AGGREGATE_NAMES`` but
-    the sketches (Queue 1 item 6) and the collect aggregates (item 5), which
-    raise ``KeyError`` by name."""
-    from velox_tpu.exec.collect_agg import COLLECT_AGG_NAMES
+    """The port binds every name of the reference's ``AGGREGATE_NAMES`` and
+    ``COLLECT_AGG_NAMES`` but the sketches (Queue 1 item 6: approx_distinct,
+    bloom_filter_agg, approx_percentile and the sketch rewrite's internal
+    names), which raise ``KeyError`` by name; the collect aggregates bind to
+    ``exec/collect_agg.py``."""
+    from velox_tpu.exec.collect_agg import COLLECT_AGG_NAMES as REF_COLLECT
+    from velox_tpu_torch.exec.collect_agg import COLLECT_AGG_NAMES, CollectAggregate
 
     later = {"approx_distinct": 6, "bloom_filter_agg": 6}
+    sketch_collect = {"approx_percentile", "__dd_quantile", "__kll_quantile", "__bloom_assemble"}
     assert set(AGGREGATE_NAMES) == set(REF_NAMES) - set(later)
+    assert set(COLLECT_AGG_NAMES) == set(REF_COLLECT) - sketch_collect
     assert set(COLLECT_AGG_NAMES).isdisjoint(AGGREGATE_NAMES)
-    for name in list(later) + list(COLLECT_AGG_NAMES):
+    arg_types = {"map_agg": (BIGINT, BIGINT), "multimap_agg": (BIGINT, BIGINT),
+                 "map_union": (map_(BIGINT, BIGINT),),
+                 "approx_most_frequent": (BIGINT, BIGINT, BIGINT)}
+    for name in COLLECT_AGG_NAMES:
+        bound = bind_aggregate(name, arg_types.get(name, (BIGINT,)))
+        assert isinstance(bound, CollectAggregate) and bound.name == name
+    for name in list(later) + sorted(sketch_collect):
         with pytest.raises(KeyError, match=name):
             bind_aggregate(name, (BIGINT,))
 

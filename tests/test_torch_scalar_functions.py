@@ -297,20 +297,10 @@ def test_string_literal_case_raises_in_both_packages():
         RefBuilder().table_scan(ref_t).project(text).build()
 
 
-# every name the JAX package's registry holds beyond its Presto scalar and
-# time-zone modules, with the ROADMAP Queue 1 item that ports it: 5 the
-# array / map / lambda functions (functions/presto/complex.py), 6 the Spark
-# package (functions/spark/)
-LATER = {name: 5 for name in (
-    "aggregate", "all_match", "any_match", "array", "array_contains", "array_distinct",
-    "array_except", "array_intersect", "array_join", "array_max", "array_min",
-    "array_normalize", "array_position", "array_sort", "array_sort_desc", "array_sum",
-    "array_union", "arrays_overlap", "cardinality", "contains", "cosine_similarity",
-    "element_at", "filter", "flatten", "map", "map_concat", "map_filter",
-    "map_from_arrays", "map_keys", "map_values", "map_zip_with", "none_match", "reduce",
-    "repeat", "row", "sequence", "size", "slice", "sort_array", "split", "subscript",
-    "transform", "transform_keys", "transform_values", "zip_with",
-)}
+# every name the JAX package's registry holds beyond its Presto scalar,
+# time-zone and array / map / lambda modules, with the ROADMAP Queue 1 item
+# that ports it: 6, the Spark package (functions/spark/)
+LATER = {}
 LATER.update({name: 6 for name in (
     "add", "add_months", "ascii", "bin", "chr", "conv", "cot", "crc32", "csc", "date_sub",
     "datediff", "dayofmonth", "dayofweek", "dayofyear", "endswith", "equalnullsafe",
@@ -339,20 +329,30 @@ def _public(registry):
 def test_registered_names_match_reference():
     """The port registers every name of the JAX package's registry but those
     left to a later slice (``LATER``); those raise ``KeyError`` by name.  A
-    name that both a later module and the Presto scalars register (``concat``,
-    ``date_add``, ``from_unixtime``, ``reverse``) is here with its Presto
-    overloads."""
+    name that both the Spark package and the Presto scalars register
+    (``date_add``, ``from_unixtime``) is here with its Presto overloads; the
+    names of the array / map / lambda functions (``functions/presto/
+    complex.py``, ROADMAP Queue 1 item 5) are all registered, ``concat`` and
+    ``reverse`` with their ARRAY overloads beside the string ones."""
     from velox_tpu.exec.sketch import _register_hll_functions
 
     _register_hll_functions()  # as after any earlier sketch plan in this process
     assert SKETCH <= _public(REF_REGISTRY)
     assert _public(PORT_REGISTRY) == _public(REF_REGISTRY) - set(LATER) - SKETCH
-    for module, item in (("presto.complex", 5), ("spark.scalar", 6)):
-        owned = {
-            n for n, sigs in REF_REGISTRY._functions.items()
-            if all(sig.impl.__module__.endswith(module) for sig in sigs)
-        }
-        assert owned == {n for n, i in LATER.items() if i == item}
+    owned = {
+        n for n, sigs in REF_REGISTRY._functions.items()
+        if all(sig.impl.__module__.endswith("spark.scalar") for sig in sigs)
+    }
+    assert owned == {n for n, i in LATER.items() if i == 6} == set(LATER)
+    complex_names = {
+        n for n, sigs in REF_REGISTRY._functions.items()
+        if any(sig.impl.__module__.endswith("presto.complex") for sig in sigs)
+    }
+    assert len(complex_names) == 47 and complex_names <= _public(PORT_REGISTRY)
+    for name in complex_names:
+        ref_kinds = sorted(str(sig.arg_matchers) for sig in REF_REGISTRY._functions[name])
+        port_kinds = sorted(str(sig.arg_matchers) for sig in PORT_REGISTRY._functions[name])
+        assert port_kinds == ref_kinds, name
     for name in (*LATER, *SKETCH):
         with pytest.raises(KeyError, match=name):
             PORT_REGISTRY.resolve(name, [])

@@ -178,9 +178,22 @@ def test_unported_plans_raise_by_name():
     from velox_tpu_torch.plan import PlanBuilder
 
     scan = lambda: PlanBuilder().table_scan(tables["lineitem"])  # noqa: E731
-    for method in ("unnest", "group_id", "table_write"):
-        with pytest.raises(NotImplementedError, match=method):
-            getattr(scan(), method)(None)
+    with pytest.raises(NotImplementedError, match="table_write"):
+        scan().table_write(None)
+    # unnest and group_id run: every lineitem row once per grouping set, and
+    # one row per element of an array built from its columns
+    n = tables["lineitem"].num_rows
+    grouped = scan().group_id([["l_returnflag"], []], ["l_quantity"], "gid").build()
+    out = PortExecutor(grouped, tile_rows=1 << 14, device="cpu").run()
+    assert out.num_rows == 2 * n
+    assert np.bincount(np.asarray(out.columns["gid"])).tolist() == [n, n]
+    unnested = (
+        scan().project(["array[l_quantity, l_discount] as qd"])
+        .unnest([], ["qd"], ordinality="pos").build()
+    )
+    out = PortExecutor(unnested, tile_rows=1 << 14, device="cpu").run()
+    assert out.num_rows == 2 * n
+    assert np.bincount(np.asarray(out.columns["pos"])).tolist() == [0, n, n]
     # a join whose build side repeats its key runs as an expansion join:
     # one output row per pair of rows with equal keys
     cols = {n: np.asarray(tables["lineitem"].columns[n]) for n in ("l_tax", "l_quantity", "l_discount")}

@@ -11,8 +11,9 @@ ungrouped aggregation is the G=1 case.  Each accumulator declares its combine
 op (sum/min/max), from which raw-input updates and partial merges both derive.
 
 Every aggregate of the JAX package's ``bind_aggregate`` is here but the
-sketches (``approx_distinct``, ``bloom_filter_agg``) and the collect
-aggregates, which come with later slices and raise ``KeyError`` by name.
+sketches (``approx_distinct``, ``bloom_filter_agg``, ``approx_percentile``),
+which come with a later slice and raise ``KeyError`` by name.  The collect
+aggregates (``array_agg`` and its family) bind to ``exec/collect_agg.py``.
 Each works in the direct modes (``update``), in sort mode (``run_reduce``
 over a tile's sorted runs, ``merge_runs`` in the carry merge) and in the host
 merge (``host_merge_sorted``).  min_by / max_by keep (ordering, payload)
@@ -522,6 +523,12 @@ def bind_aggregate(
         types = (input_types,)
     else:
         types = tuple(input_types)
+
+    from .collect_agg import COLLECT_AGG_NAMES, bind_collect
+
+    if name in COLLECT_AGG_NAMES:
+        # list-valued state, assembled on the host (exec/collect_agg.py)
+        return bind_collect(name, types)
 
     if name == "count":
         return BoundAggregate(

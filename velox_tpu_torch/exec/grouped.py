@@ -4,8 +4,8 @@ Counterpart of the part of the JAX package's ``exec/grouped.py`` that UNION
 ALL, MergeExchange and the chunked window need: ``concat_tables``.  The rest
 of that module (Hive ``split_groups`` and ``GroupedExecution``, the grouped
 execution of split groups with checkpoints) comes with the memory, spill and
-grouped-execution slice.  Complex-typed (ARRAY / MAP) columns raise by name:
-their host form (``HostSegments``) is not ported yet.
+grouped-execution slice.  Complex-typed (ARRAY / MAP / ROW) columns
+concatenate through their host form (``vector/complex.py``).
 """
 
 from __future__ import annotations
@@ -34,10 +34,9 @@ def concat_tables(tables: Sequence[Table]) -> Table:
     validities: Dict[str, np.ndarray] = {}
     for name, dtype in zip(first.schema.names, first.schema.types):
         if dtype.is_complex:
-            raise NotImplementedError(
-                "concat_tables of complex-typed columns (HostSegments) is not ported yet"
-            )
-        if dtype.is_string and any(name in t.string_tables for t in tables):
+            parts = [t.columns[name] for t in tables]
+            cols[name] = type(parts[0]).concat(parts)
+        elif dtype.is_string and any(name in t.string_tables for t in tables):
             combined = StringTable()
             parts = []
             for t in tables:

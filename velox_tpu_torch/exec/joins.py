@@ -980,6 +980,10 @@ class HashJoinExec:
             if n in self.build_cols
             and not (n in left_schema or n in right_key_to_left)
         ]
+        # complex-typed probe columns cannot ride as flat sort operands
+        for name in node.output_columns:
+            if name in left_schema and left_schema.type_of(name).is_complex:
+                return None
         idxb = _index_bits(cap)
         tier1 = (not out_build) or (self.bp_plan is not None)
         if tier1:
@@ -1189,6 +1193,11 @@ class HashJoinExec:
         for name, dtype in zip(node.output_schema.names, node.output_schema.types):
             if name in left_schema:
                 col = batch.column(name)
+                if dtype.is_complex:
+                    # ARRAY/MAP/ROW probe columns: spans move with the rows,
+                    # element pools stay put (as in the expansion probe)
+                    out_cols.append(col.flatten(cap).gather(perm))
+                    continue
                 values, validity = col.decode(cap)
                 g = _take(values, perm)
                 gv = None if validity is None else _take(validity, perm)

@@ -63,6 +63,7 @@ from ..plan.nodes import (
     AssignUniqueIdNode,
     EnforceSingleRowNode,
     FilterNode,
+    GroupIdNode,
     HashJoinNode,
     JoinType,
     LimitNode,
@@ -74,6 +75,7 @@ from ..plan.nodes import (
     TableScanNode,
     TopNNode,
     UnionAllNode,
+    UnnestNode,
     ValuesNode,
 )
 from ..ops.compact import compact
@@ -87,8 +89,11 @@ from .aggregates import (
     narrow_int_avg,
     narrow_int_sum,
 )
+from .collect_agg import CollectAggregate, compute_collect
+from .expand import apply_assign_unique_id, apply_groupid, apply_unnest
 from .grouping import MAX_ARRAY_GROUPS, ArrayGrouping, KeyInfo, SortGrouping, key_info
 from .hugeint import merge_result, rewrite_long_decimals
+from .strcast import render_result, rewrite_string_construction
 from .window import WindowNode
 
 
@@ -126,10 +131,37 @@ def resolve_column_strings(node: PlanNode, name: str) -> Optional[StringTable]:
         i = list(node.output_schema.names).index(name)
         tabs = [resolve_column_strings(s, s.output_schema.names[i]) for s in node.inputs]
         return tabs[0] if all(t is tabs[0] for t in tabs) else None
+    if isinstance(node, UnnestNode):
+        for col, names in zip(node.unnest, node.unnested_names):
+            if name in names:
+                return _element_strings(node.source, col, names.index(name))
     if node.sources:
         for s in node.sources:
             if name in s.output_schema:
                 return resolve_column_strings(s, name)
+    return None
+
+
+def _element_strings(node: PlanNode, name: str, child_idx: int):
+    """Dictionary of an ARRAY/MAP column's child (for unnested elements)."""
+    from ..expr.ir import StringsCall
+
+    if isinstance(node, (TableScanNode, ValuesNode)):
+        seg = node.table.columns.get(name)
+        tabs = getattr(seg, "string_tables", None)
+        if tabs and child_idx < len(tabs):
+            return tabs[child_idx]
+        return None
+    if isinstance(node, ProjectNode):
+        expr = node.exprs[node.names.index(name)]
+        if isinstance(expr, StringsCall) and child_idx == 0:
+            return expr.strings
+        if isinstance(expr, FieldAccess):
+            return _element_strings(node.source, expr.name, child_idx)
+        return None
+    for s in node.sources:
+        if name in s.output_schema:
+            return _element_strings(s, name, child_idx)
     return None
 
 
@@ -367,6 +399,16 @@ def resolve_column_nullable(node: PlanNode, name: str) -> bool:
         return any(
             resolve_column_nullable(s, s.output_schema.names[i]) for s in node.inputs
         )
+    if isinstance(node, UnnestNode):
+        if name in node.replicate:
+            return resolve_column_nullable(node.source, name)
+        return True  # elements may be NULL, and shorter zipped arrays pad with NULL
+    if isinstance(node, GroupIdNode):
+        if name in node.grouping_keys and name not in node.agg_inputs:
+            return True  # a key outside a grouping set is NULL
+        if name == node.group_id_name:
+            return False
+        return resolve_column_nullable(node.source, name)
     if node.sources:
         for s in node.sources:
             if name in s.output_schema:
@@ -392,7 +434,8 @@ class _Linear:
     # ('filter', Expr) | ('project', names, exprs, schema) | ('join', node,
     # replaced by the built HashJoinExec when the executor is constructed;
     # ('xjoin', exec) for an expansion join) | ('left_join_filter', Expr,
-    # build column names, node) | ('expand', AssignUniqueIdNode)
+    # build column names, node) | ('expand', Unnest / GroupId /
+    # AssignUniqueId node)
     steps: List[Tuple]
     agg: Optional[AggregationNode]
     finishers: List[PlanNode]  # OrderBy/TopN/Limit from bottom to top
@@ -409,14 +452,17 @@ def _linearize(root: PlanNode) -> _Linear:
         agg = node
         node = node.sources[0]
     steps_rev: List[Tuple] = []
-    while isinstance(node, (FilterNode, ProjectNode, HashJoinNode, AssignUniqueIdNode)):
+    while isinstance(
+        node,
+        (FilterNode, ProjectNode, HashJoinNode, UnnestNode, GroupIdNode, AssignUniqueIdNode),
+    ):
         if isinstance(node, FilterNode):
             steps_rev.append(("filter", node.predicate))
             node = node.sources[0]
         elif isinstance(node, ProjectNode):
             steps_rev.append(("project", node.names, node.exprs, node.output_schema))
             node = node.sources[0]
-        elif isinstance(node, AssignUniqueIdNode):
+        elif isinstance(node, (UnnestNode, GroupIdNode, AssignUniqueIdNode)):
             steps_rev.append(("expand", node))
             node = node.sources[0]
         else:
@@ -550,20 +596,13 @@ def apply_streaming(batch: Batch, steps: Sequence[Tuple]):
                 new_cols.append(col)
             batch = dataclasses.replace(batch, columns=tuple(new_cols))
         elif step[0] == "expand":
-            # the JAX package's expand steps are unnest, group id and unique
-            # id; the first two are not ported (their nodes do not exist here)
             node = step[1]
-            offset = (
-                batch.row_offset
-                if batch.row_offset is not None
-                else torch.zeros((), dtype=torch.int64, device=batch.device)
-            )
-            ids = (node.task_unique_id << 40) | (
-                offset + torch.arange(batch.capacity, dtype=torch.int64, device=batch.device)
-            )
-            batch = batch.with_columns(
-                node.output_schema, list(batch.columns) + [Column.flat(ids, node.output_schema.types[-1])]
-            )
+            if isinstance(node, UnnestNode):
+                batch = apply_unnest(batch, node)
+            elif isinstance(node, GroupIdNode):
+                batch = apply_groupid(batch, node)
+            else:
+                batch = apply_assign_unique_id(batch, node)
         elif step[0] == "project":
             _, names, exprs, schema = step
             cols, errors = ExprSet(list(exprs)).eval_to_columns(batch)
@@ -684,7 +723,13 @@ class AggExecutor:
             # place NULL keys adjacently in general — fall back to the sort
             presorted = False
             self.presorted = False
-        if not self.key_infos:
+        if any(isinstance(a, CollectAggregate) for a in self.aggs):
+            # list-valued accumulators: rows are collected and groups
+            # assembled on the host (exec/collect_agg.py)
+            self.mode = "collect_rows"
+            self.num_groups = 0
+            self.grouping = None
+        elif not self.key_infos:
             self.mode = "ungrouped"
             self.num_groups = 1
             self.grouping = None
@@ -1183,6 +1228,58 @@ class AggExecutor:
         return Table(RowType(names, types), cols, tables, validities)
 
 
+def _np_classic_agg(agg, ex, i, cols, vals, order, starts, gids, num_groups):
+    """Classic aggregates alongside collect aggregates, computed host-side on
+    the group-sorted rows (count/sum/min/max/avg/arbitrary/count_if)."""
+    names = ex.arg_names[i]
+    n = len(gids)
+    mask = np.ones(n, dtype=bool)
+    values = []
+    for j, nm in enumerate(names):
+        v = np.asarray(cols[nm])[order]
+        tr = ex.arg_transforms[i][j]
+        if tr is not None:
+            v = tr[np.clip(v.astype(np.int64), 0, len(tr) - 1)]
+        val = vals.get(nm)
+        if val is not None:
+            mask &= val[order]
+        values.append(v)
+    counts = np.bincount(gids[mask], minlength=num_groups).astype(np.int64)
+    name = agg.name
+    if name == "count":
+        return (counts if names else np.diff(np.append(starts, n))), None
+    if name == "count_if":
+        v = np.where(mask, values[0].astype(np.int64), 0)
+        return np.add.reduceat(v, starts) if len(starts) else v[:0], None
+    v = values[0]
+    if name in ("sum", "avg"):
+        acc = np.where(mask, v.astype(np.float64 if v.dtype.kind == "f" else np.int64), 0)
+        sums = np.add.reduceat(acc, starts) if len(starts) else acc[:0]
+        if name == "avg":
+            dt = ex.node.source.output_schema.type_of(names[0])
+            scale = 10.0 ** dt.scale if dt.kind == TypeKind.DECIMAL else 1.0
+            return sums / np.maximum(counts, 1) / scale, counts > 0
+        return sums, counts > 0
+    if name in ("min", "max", "arbitrary"):
+        op = np.maximum if name == "max" else np.minimum
+        if v.dtype.kind == "f":
+            ident = np.inf if name != "max" else -np.inf
+        else:
+            info = np.iinfo(np.int64)
+            ident = info.min if name == "max" else info.max
+            v = v.astype(np.int64)
+        vm = np.where(mask, v, ident)
+        out = op.reduceat(vm, starts) if len(starts) else vm[:0]
+        inv = ex.out_inverse[i]
+        if inv is not None:
+            out = inv[np.clip(out.astype(np.int64), 0, len(inv) - 1)]
+        return out, counts > 0
+    raise NotImplementedError(
+        f"{name} cannot be combined with collect aggregates in one "
+        "aggregation yet; split the aggregation into two nodes"
+    )
+
+
 def _radix_product(infos: Sequence[KeyInfo]) -> int:
     p = 1
     for k in infos:
@@ -1222,9 +1319,15 @@ def _sort_indices(table: Table, keys: Sequence[SortKey]) -> np.ndarray:
 
 
 def _table_slice(table: Table, index) -> Table:
+    def take(v):
+        if hasattr(v, "take_rows"):  # HostSegments / HostStruct
+            rows = np.arange(len(v))[index] if isinstance(index, slice) else index
+            return v.take_rows(np.asarray(rows, np.int64))
+        return v[index]
+
     return Table(
         table.schema,
-        {n: v[index] for n, v in table.columns.items()},
+        {n: take(v) for n, v in table.columns.items()},
         table.string_tables,
         {n: v[index] for n, v in table.validities.items()},
     )
@@ -1315,12 +1418,18 @@ class LocalExecutor:
                 limit=self.config.query_memory_limit_bytes,
             )
         self.pool = pool
+        # data-dependent strings (cast to VARCHAR, array_join) ride as their
+        # source values and render on the host at the end of run(); a second
+        # pass over an already rewritten plan finds nothing and keeps the specs
+        root, specs = rewrite_string_construction(root)
+        self._strcast_specs = specs or getattr(self, "_strcast_specs", None)
         root = rewrite_filtered_existence_joins(root)
         # long decimals become (hi, lo) limb columns and __i128_* calls; the
         # result is re-packed into (n, 2) columns at the end of run()
         root, self._hugeint_logical = rewrite_long_decimals(root)
         self.tile_rows = tile_rows
         self.build_seconds = 0.0
+        self.render_seconds = 0.0
         # (output bucket, rows) of every expansion the build sides and
         # barriers ran while this executor was constructed
         self.build_expansions: List[Tuple[int, int]] = []
@@ -1443,7 +1552,15 @@ class LocalExecutor:
             )
             ex = AggExecutor(lin.agg, self.capacity, presorted, max_rows=agg_max_rows)
             self.agg_exec = ex
-            if ex.mode in ("ungrouped", "array"):
+            if ex.mode == "collect_rows":
+                self.kind = "collect_agg"
+                needed: List[str] = list(lin.agg.grouping_keys)
+                for names in ex.arg_names:
+                    for nm in names:
+                        if nm not in needed:
+                            needed.append(nm)
+                self._collect_needed = needed
+            elif ex.mode in ("ungrouped", "array"):
                 self.kind = "direct_agg"
                 # filter/project steps never compact, so the scan tile stays
                 # row-aligned with the aggregation input — the precondition
@@ -1648,6 +1765,7 @@ class LocalExecutor:
     ) -> Table:
         t_start = time.perf_counter()
         self.groups_out = None
+        self.render_seconds = 0.0  # host rendering of constructed strings
         self.carry_overflowed = False
         make_tiles, n_tiles = self._tile_source(prefetched_tiles)
         if stats is not None:
@@ -1674,6 +1792,8 @@ class LocalExecutor:
             result = self._run_sort_agg_device(make_tiles, n_tiles, stats)
         elif self.kind == "sort_agg":
             result = self._run_sort_agg_host(make_tiles, stats)
+        elif self.kind == "collect_agg":
+            result = self._run_collect_agg(make_tiles, stats)
         elif self._device_sort is not None:
             # OrderBy/TopN executes on device (exec/sort.py); the finisher it
             # implements is consumed here
@@ -1684,6 +1804,10 @@ class LocalExecutor:
         result = apply_finishers(result, self.lin.finishers[skip_finishers:])
         if self._hugeint_logical is not None:
             result = merge_result(result, self._hugeint_logical)
+        if self._strcast_specs:
+            t_render = time.perf_counter()
+            result = render_result(result, self._strcast_specs)
+            self.render_seconds = time.perf_counter() - t_render
         if stats is not None:
             stats.total_seconds = time.perf_counter() - t_start
         return result
@@ -1901,12 +2025,114 @@ class LocalExecutor:
         parts = []
         strings: Dict[str, StringTable] = {}
         for (out, _), (n, _) in zip(outs, lens_errs):
-            arrays, layout = flatten_columns(out.columns, out.capacity)
             strings.update(_batch_strings(out))
-            parts.append(self._result_table(fetch_prefix(arrays, int(n)), layout, strings))
+            parts.append(_fetch_table(self.out_schema, out, int(n), strings))
         if stats is not None:
             stats.device_seconds = time.perf_counter() - t0
         return _concat_tables(self.out_schema, parts)
+
+    # ---- collect aggregates (array_agg family) ---------------------------------
+    def _run_collect_agg(self, make_tiles, stats) -> Table:
+        """Grouped aggregation with list-valued accumulators: the device runs
+        the steps, compacts each tile's needed columns and sorts the rows of
+        all tiles by the grouping keys (stable, so each group keeps input
+        order; a NULL key after the values, as one group); the rows and that
+        order are fetched once and the groups assembled on the host
+        (exec/collect_agg.py).  The JAX package sorts on the host
+        (``np.lexsort``); the order is the same."""
+        ex = self.agg_exec
+        node = ex.node
+        needed = self._collect_needed
+        in_schema = node.source.output_schema
+        sub_schema = RowType(needed, [in_schema.type_of(n) for n in needed])
+        t0 = time.perf_counter()
+        outs = []
+        for tile in make_tiles():
+            batch2, err = apply_streaming(tile, self.lin.steps)
+            outs.append((compact(batch2.project(needed, sub_schema)), err))
+        lens_errs = fetch_tree([(o.length, e) for o, e in outs])
+        _raise_on_errors(sum(int(e) for _, e in lens_errs) + self._drain_pending_errs())
+        parts = [
+            _fetch_table(sub_schema, out, int(n), {})
+            for (out, _), (n, _) in zip(outs, lens_errs)
+        ]
+        order = _collect_order(
+            node.grouping_keys, [(o, int(n)) for (o, _), (n, _) in zip(outs, lens_errs)]
+        )
+        if stats is not None:
+            stats.device_seconds = time.perf_counter() - t0
+        rows = _concat_tables(sub_schema, parts)
+        cols, vals = rows.columns, rows.validities
+        n_rows = rows.num_rows
+        keys = []
+        for k in node.grouping_keys:
+            arr = np.asarray(cols[k])
+            v = vals.get(k)
+            if v is not None:
+                keys.append((np.where(v, arr, np.zeros_like(arr)), (~v).astype(np.int8)))
+            else:
+                keys.append((arr, None))
+        if keys:
+            diff = np.zeros(n_rows, dtype=bool)
+            if n_rows:
+                diff[0] = True
+                for arr, nul in keys:
+                    s = arr[order]
+                    diff[1:] |= s[1:] != s[:-1]
+                    if nul is not None:
+                        s = nul[order]
+                        diff[1:] |= s[1:] != s[:-1]
+            starts = np.flatnonzero(diff)
+            num_groups = len(starts)
+            gids = np.repeat(np.arange(num_groups), np.diff(np.append(starts, n_rows)))
+        else:
+            starts = np.zeros(1, np.int64)
+            num_groups = 1
+            gids = np.zeros(n_rows, np.int64)
+        self.groups_out = num_groups
+        out_names = list(node.output_schema.names)
+        nkeys = len(node.grouping_keys)
+        out_cols: Dict[str, object] = {}
+        out_tables: Dict[str, StringTable] = {}
+        out_valid: Dict[str, np.ndarray] = {}
+        for info, name, k in zip(ex.key_infos, out_names[:nkeys], node.grouping_keys):
+            out_cols[name] = np.asarray(cols[k])[order][starts]
+            v = vals.get(k)
+            if v is not None:
+                out_valid[name] = v[order][starts]
+            if info.strings is not None:
+                out_tables[name] = info.strings
+        for i, (agg, name) in enumerate(zip(ex.aggs, out_names[nkeys:])):
+            argn = ex.arg_names[i]
+            if isinstance(agg, CollectAggregate):
+                args, validities, tabs = [], [], []
+                for nm in argn:
+                    c = cols[nm]
+                    if in_schema.type_of(nm).is_complex:
+                        args.append(c.take_rows(order))
+                    else:
+                        args.append(np.asarray(c)[order])
+                    v = vals.get(nm)
+                    validities.append(None if v is None else v[order])
+                    tabs.append(
+                        None
+                        if in_schema.type_of(nm).is_complex
+                        else resolve_column_strings(node.source, nm)
+                    )
+                value, validity = compute_collect(
+                    agg, gids, starts, num_groups, args, validities, tabs,
+                    lexsort=lambda keys: _device_lexsort(keys, self.device),
+                )
+            else:
+                value, validity = _np_classic_agg(
+                    agg, ex, i, cols, vals, order, starts, gids, num_groups
+                )
+                if ex.out_strings[i] is not None:
+                    out_tables[name] = ex.out_strings[i]
+            out_cols[name] = value
+            if validity is not None and not validity.all():
+                out_valid[name] = validity
+        return Table(node.output_schema, out_cols, out_tables, out_valid)
 
     def _run_collect_sorted(self, make_tiles, stats) -> Table:
         """Collect pipeline whose leading OrderBy/TopN runs on device.
@@ -1978,8 +2204,10 @@ class LocalExecutor:
 
 def _keeps_rowbound(step) -> bool:
     """Can this pipeline step only keep or drop rows (never multiply them)?"""
-    if step[0] in ("filter", "project", "left_join_filter", "expand"):
+    if step[0] in ("filter", "project", "left_join_filter"):
         return True
+    if step[0] == "expand":
+        return isinstance(step[1], AssignUniqueIdNode)
     if step[0] == "join":
         # a "join" step has a unique (or deduplicated) build side; expansion
         # joins are "xjoin" steps
@@ -2027,12 +2255,81 @@ def _host_widen(arr, dtype) -> np.ndarray:
     return a if a.dtype == want else a.astype(want)
 
 
+def _collect_order(keys: Sequence[str], tiles) -> np.ndarray:
+    """The rows of ``tiles`` ((compacted batch, live rows) pairs, in order)
+    stably sorted by ``keys`` on the device — per key a NULL flag, then the
+    value (NULLs zeroed) — as a host permutation of their concatenation."""
+    from ..ops.sortkey import sort_operands
+
+    total = sum(n for _, n in tiles)
+    if not keys or total == 0:
+        return np.arange(total)
+    ops: List[torch.Tensor] = []
+    for k in keys:
+        data = torch.cat([b.column(k).data[:n] for b, n in tiles])
+        valids = [b.column(k).validity for b, _ in tiles]
+        if any(v is not None for v in valids):
+            v = torch.cat([
+                torch.ones((n,), dtype=torch.bool, device=b.device) if v is None else v[:n]
+                for v, (b, n) in zip(valids, tiles)
+            ])
+            ops += [~v, torch.where(v, data, torch.zeros_like(data))]
+        else:
+            ops.append(data)
+    position = torch.arange(total, dtype=torch.int64, device=ops[0].device)
+    return fetch_tree(sort_operands(ops + [position], num_keys=len(ops))[-1])
+
+
+def _device_lexsort(keys, device) -> np.ndarray:
+    """``np.lexsort(keys)`` (the last key most significant, stable) computed
+    by a chain of stable sorts on ``device``: the host arrays go up, the
+    permutation comes back."""
+    from ..ops.sortkey import sort_operands
+
+    n = len(keys[0])
+    if n == 0:
+        return np.zeros(0, np.int64)
+    ops = [torch.as_tensor(np.ascontiguousarray(k)).to(device) for k in reversed(keys)]
+    position = torch.arange(n, dtype=torch.int64, device=device)
+    return fetch_tree(sort_operands(ops + [position], num_keys=len(ops))[-1])
+
+
+def _fetch_table(schema: RowType, out: Batch, n: int, strings) -> Table:
+    """Host Table of the first ``n`` rows of a compacted batch: flat columns
+    through one prefix fetch, ARRAY / MAP / ROW columns through
+    ``column_to_host`` (the pools re-densify on the host)."""
+    from ..vector.complex import column_to_host
+    from .sort import flatten_columns
+
+    flat = [(nm, c) for nm, c in zip(schema.names, out.columns) if not c.dtype.is_complex]
+    flat_schema = RowType([nm for nm, _ in flat], [c.dtype for _, c in flat])
+    arrays, layout = flatten_columns([c for _, c in flat], out.capacity)
+    part = _host_table(flat_schema, fetch_prefix(arrays, n), layout, strings)
+    if len(flat) == len(schema.names):
+        return part
+    cols = dict(part.columns)
+    validities = dict(part.validities)
+    for nm, c in zip(schema.names, out.columns):
+        if c.dtype.is_complex:
+            seg, validity = column_to_host(c, n)
+            cols[nm] = seg
+            if validity is not None and not validity.all():
+                validities[nm] = validity
+    return Table(schema, {nm: cols[nm] for nm in schema.names}, part.string_tables, validities)
+
+
+def _concat_column(parts):
+    """Concatenate host column parts: numpy arrays or HostSegments /
+    HostStruct (vector/complex.py)."""
+    if isinstance(parts[0], np.ndarray) or not hasattr(parts[0], "take_rows"):
+        return np.concatenate(parts)
+    return type(parts[0]).concat(parts)
+
+
 def _concat_tables(schema: RowType, parts: Sequence[Table]) -> Table:
     """Row-wise concatenation of per-tile result Tables (a part without a
     validity array for a column is all-valid there)."""
-    cols = {
-        n: np.concatenate([p.columns[n] for p in parts]) for n in schema.names
-    }
+    cols = {n: _concat_column([p.columns[n] for p in parts]) for n in schema.names}
     validities = {}
     for n in schema.names:
         if any(n in p.validities for p in parts):

@@ -19,8 +19,9 @@ as properties of the walk:
 Null discipline is Presto's: default-null for plain calls, Kleene logic for
 AND/OR, lazy-branch semantics for IF/SWITCH via masking.
 
-ARRAY / MAP / ROW values and lambdas are not ported yet: evaluating one raises
-``NotImplementedError``.
+ARRAY / MAP / ROW values evaluate to ``expr/seg.py`` SegValue / StructValue
+(spans over element pools); the array / map / lambda functions are dispatched
+by name to ``functions/presto/complex.py``.
 """
 
 from __future__ import annotations
@@ -98,12 +99,16 @@ class EvalContext:
 
     # ------------------------------------------------------------------
     def _evaluate(self, expr: Expr) -> EvalResult:
-        if expr.dtype.is_complex:
-            raise NotImplementedError(
-                "ARRAY/MAP/ROW expressions are not ported yet"
-            )
         if isinstance(expr, FieldAccess):
             col = self.batch.column(expr.name)
+            if expr.dtype.kind == TypeKind.ROW:
+                from .seg import StructValue
+
+                return EvalResult(StructValue.from_column(col), col.validity)
+            if expr.dtype.is_complex:
+                from .seg import SegValue
+
+                return EvalResult(SegValue.from_column(col), col.validity)
             values, validity = col.decode(self.capacity)
             return EvalResult(values, validity)
         if isinstance(expr, Constant):
@@ -142,6 +147,11 @@ class EvalContext:
         return values.expand((self.capacity,))
 
     def _call(self, expr: Call) -> EvalResult:
+        from ..functions.presto.complex import COMPLEX_FNS, is_complex_call
+
+        if is_complex_call(expr.name, expr.args):
+            result = COMPLEX_FNS[expr.name](self, expr)
+            return self._surface_pool_overflow(expr, result)
         arg_results = [self.evaluate(a) for a in expr.args]
         arg_types = [a.dtype for a in expr.args]
         sig, _, _ = self.registry.resolve(expr.name, arg_types)
@@ -175,6 +185,27 @@ class EvalContext:
             fn_errors = fn_errors & validity
         errors = _or_masks(errors, fn_errors)
         return EvalResult(values, validity, errors)
+
+    def _surface_pool_overflow(self, expr: Call, result: EvalResult) -> EvalResult:
+        """If a complex function normalized an argument whose duplicated spans
+        exceeded its static element pool, the result is truncated — surface it
+        as a row error (ops/segpool.normalize sets the flag).  The CSE cache
+        holds the argument results, including their memoized normalization."""
+        from .seg import SegValue
+
+        errors = result.errors
+        for a in expr.args:
+            r = self._cse.get(a.key())
+            if (
+                r is not None
+                and isinstance(r.values, SegValue)
+                and r.values._norm_cache is not None
+                and r.values._norm_cache.overflow is not None
+            ):
+                o = r.values._norm_cache.overflow.expand((self.capacity,))
+                errors = _or_masks(errors, o)
+        result.errors = errors
+        return result
 
     # ---- special forms ------------------------------------------------
     def _special(self, expr: Special) -> EvalResult:
@@ -430,6 +461,9 @@ class ExprSet:
         cols = []
         for e, r in zip(self.exprs, results):
             errors = _or_masks(errors, r.errors)
+            if e.dtype.is_complex:
+                cols.append(r.values.to_column(r.validity))
+                continue
             strings = r.strings or _strings_of(e, batch)
             cols.append(Column.flat(r.values, e.dtype, r.validity, strings))
         return cols, errors
@@ -444,8 +478,20 @@ def _strings_of(expr: Expr, batch: Batch):
     if isinstance(expr, FieldAccess):
         return batch.column(expr.name).strings
     for child in expr.children:
-        if child.dtype.is_string:
-            t = _strings_of(child, batch)
-            if t is not None:
-                return t
+        t = _child_string_table(child, batch)
+        if t is not None:
+            return t
+    return None
+
+
+def _child_string_table(expr: Expr, batch: Batch):
+    if expr.dtype.is_string:
+        return _strings_of(expr, batch)
+    if expr.dtype.is_complex and isinstance(expr, FieldAccess):
+        # element_at / subscript on ARRAY(VARCHAR) / MAP(.., VARCHAR): the
+        # string dictionary lives on the complex column's child pool
+        col = batch.column(expr.name)
+        for ch in reversed(col.children):  # MAP: prefer the value child
+            if ch.strings is not None:
+                return ch.strings
     return None

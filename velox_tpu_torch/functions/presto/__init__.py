@@ -1,12 +1,13 @@
 """Presto-semantic function package.
 
-Importing this module registers the scalar and time-zone functions into the
-default registry (reference: velox/functions/prestosql/registration/).  The
-array / map / lambda functions (``complex``) and the Spark package come with
-later slices.
+Importing this module registers the scalar, time-zone and array / map /
+lambda functions into the default registry (reference:
+velox/functions/prestosql/registration/), in the JAX package's order.  The
+Spark package comes with a later slice.
 """
 
 from . import scalar  # noqa: F401
+from . import complex  # noqa: F401,A004
 from . import tzfuncs  # noqa: F401
 
 scalar.register_all()

@@ -125,9 +125,17 @@ class Table:
         cols: List[Column] = []
         for name, dtype in zip(self.schema.names, self.schema.types):
             if dtype.is_complex:
-                raise NotImplementedError(
-                    "complex-typed columns are not ported yet"
+                # HostSegments / HostStruct (vector/complex.py): spans and
+                # power-of-two element pools of this tile's rows
+                validity = self.validities.get(name)
+                if validity is not None:
+                    validity = validity[start:stop]
+                cols.append(
+                    self.columns[name]
+                    .slice_rows(start, stop)
+                    .device_column(tile_rows, validity)
                 )
+                continue
             arr = np.asarray(self.columns[name][start:stop])
             narrow = self._narrow_dtype(name, dtype, arr)
             if narrow != arr.dtype:
@@ -175,7 +183,11 @@ class Table:
         for name, dtype in zip(self.schema.names, self.schema.types):
             arr = self.columns[name]
             if dtype.is_complex:
-                raise NotImplementedError("complex columns are not ported yet")
+                lst = arr.to_pylist(self.validities.get(name))
+                obj = np.empty(len(lst), dtype=object)
+                obj[:] = lst
+                out[name] = obj
+                continue
             if decode and dtype.is_string and name in self.string_tables:
                 arr = self.string_tables[name].decode(arr)
             elif decode and dtype.is_long_decimal:
@@ -222,6 +234,7 @@ def _pin(batch: Batch) -> Batch:
             data=c.data.pin_memory(),
             validity=None if c.validity is None else c.validity.pin_memory(),
             base=None if c.base is None else pin(c.base),
+            children=tuple(pin(ch) for ch in c.children),
         )
 
     return dataclasses.replace(batch, columns=tuple(pin(c) for c in batch.columns))

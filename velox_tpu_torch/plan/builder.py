@@ -9,8 +9,8 @@ Ported so far: ``table_scan``, ``values``, ``filter``, ``project``,
 ``aggregation`` (plain aggregates and ``count(distinct x)``), ``hash_join``
 (every join type), ``cross_join``, ``nested_loop_join``, ``union_all``,
 ``merge_exchange``, ``window``, ``row_number``, ``topn_row_number``,
-``mark_distinct``, ``assign_unique_id``, ``enforce_single_row``, ``orderby``,
-``topn``, ``limit``, ``build``.  ``unnest`` and ``group_id`` (complex types),
+``mark_distinct``, ``unnest``, ``group_id``, ``assign_unique_id``,
+``enforce_single_row``, ``orderby``, ``topn``, ``limit``, ``build``.
 ``arrow_stream`` and ``table_write`` (file formats) raise
 ``NotImplementedError`` naming the slice that brings them.
 """
@@ -31,6 +31,7 @@ from .nodes import (
     AssignUniqueIdNode,
     EnforceSingleRowNode,
     FilterNode,
+    GroupIdNode,
     HashJoinNode,
     JoinType,
     LimitNode,
@@ -42,6 +43,7 @@ from .nodes import (
     TableScanNode,
     TopNNode,
     UnionAllNode,
+    UnnestNode,
     ValuesNode,
 )
 
@@ -104,7 +106,7 @@ class PlanBuilder:
 
         Current-schema VARCHAR columns resolve through their provenance (so
         renamed / substr-derived columns bind correctly); scan-leaf tables are
-        added by original name.
+        added by original name for columns referenced through pending joins.
         """
         out = {}
         if self.node is None:
@@ -124,6 +126,15 @@ class PlanBuilder:
             if isinstance(node, (TableScanNode, ValuesNode)):
                 for k, v in node.table.string_tables.items():
                     out.setdefault(k, v)
+                # ARRAY/MAP columns: expose the child string dictionary (MAP
+                # keys first) so literals in element_at(m, 'k') etc. bind
+                for k, t in zip(node.table.schema.names, node.table.schema.types):
+                    if t.is_complex:
+                        seg = node.table.columns.get(k)
+                        for tab in getattr(seg, "string_tables", ()) or ():
+                            if tab is not None:
+                                out.setdefault(k, tab)
+                                break
 
         walk(self.node)
         return out
@@ -178,9 +189,9 @@ class PlanBuilder:
         supported).  Non-field arguments are auto-projected first (the
         reference PlanBuilder does the same); distinct aggregates rewrite into
         a dedupe aggregation feeding a count (the physical plan the
-        reference's planner also emits).  approx_distinct,
-        approx_most_frequent and reduce_agg lower onto sketches and windows
-        and are not ported yet."""
+        reference's planner also emits).  approx_most_frequent and reduce_agg
+        lower onto windows and collect aggregates, as in the JAX package;
+        approx_distinct lowers onto a sketch and is not ported yet."""
         step = AggregationStep(step)
         parsed = []  # (fn, [arg texts], name, is_distinct)
         for i, item in enumerate(aggregates):
@@ -194,7 +205,7 @@ class PlanBuilder:
                 raise ValueError(f"cannot parse aggregate {item!r}")
             fn = call_m.group("fn").lower()
             argtext = call_m.group("arg").strip()
-            if fn in ("approx_distinct", "approx_most_frequent", "reduce_agg"):
+            if fn == "approx_distinct":
                 raise NotImplementedError(
                     f"aggregate {item!r}: sketch aggregates are not ported "
                     "yet; they come with the sketch slice"
@@ -208,6 +219,71 @@ class PlanBuilder:
             else:
                 args = _split_call_args(argtext)
             parsed.append((fn, args, name, distinct))
+
+        if (
+            len(parsed) == 1
+            and parsed[0][0] == "approx_most_frequent"
+            and re.fullmatch(
+                r"[A-Za-z_][A-Za-z_0-9]*", parsed[0][1][1].strip()
+            )
+        ):
+            # bounded-state lowering (reference:
+            # ApproxMostFrequentStreamSummary.h): exact per-(group, value)
+            # counts through the grouped aggregation, then a windowed top-k
+            # cut so only groups x buckets rows reach the host map assembly
+            # — tighter than the reference's sketch (results are exact)
+            fn, args, name, _ = parsed[0]
+            buckets = int(args[0])
+            v = args[1].strip()
+            keys = list(grouping_keys)
+            self.filter(f"{v} is not null")
+            self._plain_aggregation(keys + [v], [("count", [], "__mf_c")], step)
+            self.topn_row_number(
+                keys, ["__mf_c desc", v], buckets, name="__mf_rn"
+            )
+            self.project(keys + [v, "__mf_c"])
+            return self._plain_aggregation(
+                keys, [("map_agg", [v, "__mf_c"], name)], step
+            )
+
+        reduce_aggs = [
+            (i, args, name)
+            for i, (f, args, name, _) in enumerate(parsed)
+            if f == "reduce_agg"
+        ]
+        if reduce_aggs:
+            # reduce_agg(x, s0, input_fn, combine_fn) lowers to
+            # array_agg(x) + reduce(...) above the aggregation: a sequential
+            # fold with the input function computes the same state as the
+            # reference's pairwise combine, because reduce_agg's contract
+            # requires commutative/associative functions
+            # (reference: prestosql/aggregates/ReduceAgg.cpp).
+            rewritten = []
+            post: List[tuple] = []  # (output name, reduce expr text, tmp name)
+            for i, (f, args, name, d) in enumerate(parsed):
+                if f != "reduce_agg":
+                    rewritten.append((f, args, name, d))
+                    continue
+                assert len(args) >= 3, "reduce_agg(x, s0, input_fn[, combine_fn])"
+                tmp = f"__ra{i}"
+                rewritten.append(("array_agg", [args[0]], tmp, False))
+                post.append(
+                    (name, f"reduce({tmp}, {args[1]}, {args[2]}, s -> s)")
+                )
+            self.aggregation(
+                grouping_keys,
+                [
+                    f"{f}({', '.join(a) if a else '*'}) as {n}"
+                    for f, a, n, _ in rewritten
+                ],
+                step,
+            )
+            keep = [
+                n for n in self.schema.names if not n.startswith("__ra")
+            ]
+            exprs = list(keep) + [f"{text} as {name}" for name, text in post]
+            return self.project(exprs)
+
         if any(d for _, _, _, d in parsed):
             return self._aggregation_with_distinct(grouping_keys, parsed, step)
         return self._plain_aggregation(
@@ -551,8 +627,36 @@ class PlanBuilder:
         cols = [n for n in self.schema.names if n != tmp]
         return self.project(cols + [f"{tmp} = 1 as {marker}"])
 
+    def unnest(
+        self,
+        replicate: Sequence[str],
+        unnest: Sequence[str],
+        ordinality: Optional[str] = None,
+    ) -> "PlanBuilder":
+        """Reference: core::UnnestNode — one row per element of the ``unnest``
+        ARRAY / MAP columns (zipped to the longest), ``replicate`` columns
+        repeated, an optional 1-based ordinality column."""
+        self.node = UnnestNode(
+            self.node, tuple(replicate), tuple(unnest), ordinality_name=ordinality
+        )
+        return self
+
+    def group_id(
+        self,
+        grouping_sets: Sequence[Sequence[str]],
+        agg_inputs: Sequence[str],
+        name: str = "group_id",
+    ) -> "PlanBuilder":
+        """Reference: core::GroupIdNode — the input once per grouping set,
+        keys outside the set NULL, plus a BIGINT set id."""
+        self.node = GroupIdNode(
+            self.node,
+            tuple(tuple(s) for s in grouping_sets),
+            tuple(agg_inputs),
+            name,
+        )
+        return self
+
     # ---- later slices ----------------------------------------------------
-    unnest = _later("unnest", "complex types")
-    group_id = _later("group_id", "complex types")
     arrow_stream = _later("arrow_stream", "file formats")
     table_write = _later("table_write", "file formats")

@@ -6,10 +6,10 @@ plans are *fully specified physical plans* — no SQL, no optimizer; an
 integrator (or PlanBuilder) constructs the tree.
 
 This package has the nodes its executor runs so far: TableScan, Values,
-Filter, Project, Aggregation, HashJoin, AssignUniqueId, UnionAll,
-MergeExchange, the finishers OrderBy / TopN / Limit / EnforceSingleRow, and
-(in ``exec/window.py``, as in the JAX package) Window.  Unnest, group-id,
-exchange and table-write nodes come with the slices that execute them.
+Filter, Project, Aggregation, HashJoin, Unnest, GroupId, AssignUniqueId,
+UnionAll, MergeExchange, the finishers OrderBy / TopN / Limit /
+EnforceSingleRow, and (in ``exec/window.py``, as in the JAX package) Window.
+Exchange and table-write nodes come with the slices that execute them.
 
 Nodes carry typed expressions from ``expr``; output schemas are computed
 bottom-up at construction.
@@ -192,6 +192,75 @@ class EnforceSingleRowNode(PlanNode):
     def __post_init__(self):
         self.sources = (self.source,)
         self.output_schema = self.source.output_schema
+
+
+@dataclasses.dataclass
+class UnnestNode(PlanNode):
+    """Expand ARRAY/MAP columns into one row per element.
+
+    Reference: core::UnnestNode (PlanNode.h) + exec/Unnest.cpp — multiple
+    unnest columns zip to the longest, shorter ones pad with NULL; a MAP
+    yields a key column and a value column; optional 1-based ordinality.
+    """
+
+    source: PlanNode
+    replicate: Tuple[str, ...]
+    unnest: Tuple[str, ...]
+    unnested_names: Tuple[Tuple[str, ...], ...] = ()  # per col: 1 (array) / 2 (map)
+    ordinality_name: Optional[str] = None
+    id: str = dataclasses.field(default_factory=lambda: _next_id("unnest"))
+
+    def __post_init__(self):
+        from ..dtypes import TypeKind
+
+        self.sources = (self.source,)
+        src = self.source.output_schema
+        if not self.unnested_names:
+            names = []
+            for c in self.unnest:
+                t = src.type_of(c)
+                names.append((c,) if t.kind == TypeKind.ARRAY else (c + "_k", c + "_v"))
+            self.unnested_names = tuple(names)
+        out_names = list(self.replicate)
+        out_types: List[DataType] = [src.type_of(c) for c in self.replicate]
+        for c, names in zip(self.unnest, self.unnested_names):
+            t = src.type_of(c)
+            if t.kind == TypeKind.ARRAY:
+                assert len(names) == 1
+                out_types.append(t.element)
+            else:
+                assert t.kind == TypeKind.MAP and len(names) == 2
+                out_types.extend([t.key_type, t.value_type])
+            out_names.extend(names)
+        if self.ordinality_name:
+            out_names.append(self.ordinality_name)
+            out_types.append(BIGINT)
+        self.output_schema = RowType(out_names, out_types)
+
+
+@dataclasses.dataclass
+class GroupIdNode(PlanNode):
+    """Duplicate input per grouping set with a group_id column
+    (reference: core::GroupIdNode, exec/GroupId.cpp — GROUPING SETS lowering)."""
+
+    source: PlanNode
+    grouping_sets: Tuple[Tuple[str, ...], ...]
+    agg_inputs: Tuple[str, ...]
+    group_id_name: str = "group_id"
+    id: str = dataclasses.field(default_factory=lambda: _next_id("groupid"))
+
+    def __post_init__(self):
+        self.sources = (self.source,)
+        src = self.source.output_schema
+        keys: List[str] = []
+        for s in self.grouping_sets:
+            for k in s:
+                if k not in keys:
+                    keys.append(k)
+        names = keys + list(self.agg_inputs) + [self.group_id_name]
+        types = [src.type_of(n) for n in keys + list(self.agg_inputs)] + [BIGINT]
+        self.grouping_keys = tuple(keys)
+        self.output_schema = RowType(names, types)
 
 
 @dataclasses.dataclass

@@ -16,7 +16,15 @@ from ..dtypes import DataType, RowType, TypeKind, decimal
 from ..io.table import Table
 from ..vector.string_table import StringTable
 
-__all__ = ["assert_plan_result", "parse_type", "run_at_tile_sizes", "table_from_numpy"]
+__all__ = [
+    "assert_plan_result",
+    "assert_same_rows",
+    "assert_same_values",
+    "parse_type",
+    "python_rows",
+    "run_at_tile_sizes",
+    "table_from_numpy",
+]
 
 
 _DECIMAL_RE = re.compile(r"^DECIMAL\((\d+),\s*(\d+)\)$", re.IGNORECASE)
@@ -133,3 +141,53 @@ def assert_same_rows(got, want, rtol: float = 1e-9, atol: float = 0.0):
             np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, equal_nan=True, err_msg=name)
         else:
             np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def python_rows(table) -> Dict[str, list]:
+    """A result Table as {column: list of Python values}: NULL is None,
+    strings decoded, ARRAY / MAP / ROW values as lists / dicts.  Works on a
+    Table of another engine with the same layout (it only calls
+    ``to_pandas``)."""
+    df = table.to_pandas()
+    return {name: [_py_value(v) for v in df[name].tolist()] for name in df.columns}
+
+
+def _py_value(v):
+    if v is None:
+        return None
+    if isinstance(v, dict):
+        return {_py_value(k): _py_value(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple, np.ndarray)):
+        return [_py_value(x) for x in v]
+    if isinstance(v, np.generic):
+        v = v.item()
+    if isinstance(v, float) and v != v:
+        return None  # pandas spells a NULL of a float or string column NaN
+    try:
+        import pandas as pd
+
+        if v is pd.NA:
+            return None
+    except ImportError:  # pragma: no cover
+        pass
+    return v
+
+
+def assert_same_values(got, want, rtol: float = 1e-9, path: str = "") -> None:
+    """Nested Python values (``python_rows``) equal: floats to ``rtol``,
+    everything else exactly, dict keys as sets."""
+    if isinstance(want, float) or isinstance(got, float):
+        assert got is not None and want is not None, (path, got, want)
+        assert abs(got - want) <= rtol * max(abs(got), abs(want)), (path, got, want)
+        return
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), (path, got, want)
+        for k in want:
+            assert_same_values(got[k], want[k], rtol, f"{path}[{k!r}]")
+        return
+    if isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), (path, got, want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same_values(g, w, rtol, f"{path}[{i}]")
+        return
+    assert got == want, (path, got, want)

@@ -17,6 +17,8 @@ velox/vector/SelectivityVector.h:39.
 * ``decode`` is the DecodedVector analog: collapse any encoding to
   (values, validity).  Narrow integer uploads widen here.
 * Strings on device are always int32 dictionary codes (see string_table.py).
+* ARRAY / MAP / ROW columns carry spans and element pools (``children``;
+  vector/complex.py).
 """
 
 from __future__ import annotations
@@ -65,6 +67,12 @@ class Column:
     dtype: DataType
     encoding: Encoding
     strings: Optional[StringTable] = None
+    # ARRAY/MAP: ``data`` is int64[capacity, 2] (start, size) spans and
+    # ``children`` holds the element pool column(s) (ARRAY: one, MAP: key +
+    # value) with their own pool capacity (velox ArrayVector/MapVector
+    # analog); ROW: ``data`` is a placeholder and ``children`` the row-aligned
+    # fields (vector/complex.py).
+    children: Tuple["Column", ...] = ()
 
     # ---- constructors ----------------------------------------------------
     @staticmethod
@@ -135,6 +143,7 @@ class Column:
             base=None
             if self.base is None
             else self.base.to(device, non_blocking=non_blocking),
+            children=tuple(c.to(device, non_blocking) for c in self.children),
         )
 
     # ---- DecodedVector analog -------------------------------------------
@@ -183,7 +192,21 @@ class Column:
     def gather(self, indices: torch.Tensor) -> "Column":
         """Row-reordering gather; result is FLAT with the indices' length."""
         if self.dtype.is_complex:
-            raise NotImplementedError("complex-typed columns are not ported yet")
+            # ARRAY/MAP: spans move with the rows; element pools stay put
+            # (consumers re-densify via ops.segpool.normalize when they need
+            # row order).  ROW: children are row-aligned and gather with us.
+            data = _take_clamped(self.data, indices)
+            validity = (
+                None
+                if self.validity is None
+                else _take_clamped(self.validity, indices)
+            )
+            children = self.children
+            if self.dtype.kind == TypeKind.ROW:
+                children = tuple(c.gather(indices) for c in children)
+            return dataclasses.replace(
+                self, data=data, validity=validity, children=children
+            )
         if self.encoding == Encoding.CONSTANT:
             cap = indices.shape[0]
             values, validity = self.decode(cap)
@@ -205,6 +228,8 @@ class Column:
         return Column.flat(data, self.dtype, validity, self.strings)
 
     def flatten(self, capacity: int) -> "Column":
+        if self.dtype.is_complex:
+            return self  # complex columns are always span+pool form
         values, validity = self.decode(capacity)
         return Column.flat(values, self.dtype, validity, self.strings)
 
@@ -248,8 +273,16 @@ class Column:
     def to_numpy(self, length: int, decode_strings: bool = True):
         """Materialize the first ``length`` rows on the host.
 
-        Returns (values, validity_or_None); strings decode to object arrays.
+        Returns (values, validity_or_None); strings decode to object arrays,
+        ARRAY/MAP/ROW columns to object arrays of python lists/dicts.
         """
+        if self.dtype.is_complex:
+            from .complex import column_to_host
+
+            seg, validity = column_to_host(self, length)
+            values = np.empty(length, dtype=object)
+            values[:] = seg.to_pylist()
+            return values, validity
         cap = length if self.is_constant else self.capacity
         values, validity = self.decode(cap)
         values = values.cpu().numpy()[:length]
