@@ -75,14 +75,14 @@ data is the same in every run.  The script
 10. runs the function slice (``tpch_functions``: one line each) over the
    same tables: the SQL texts of ``FUNCTION_SQL`` (A1, every new aggregate
    in direct mode over ``lineitem``; A2, five of them in sort mode over its
-   15 M orders through the device carry merge; S1 and S2, the date, math,
+   orders through the device carry merge; S1 and S2, the date, math,
    probability, conditional and dictionary string functions; D1, long-decimal
    sums past 2^63, avg and a long-decimal division; T1, time zones; W5, a
    window over every
    ``orders`` row with NULL partition and order keys, then again at SF 1 in
    passes of whole partitions of 2^18 rows, for its rows only; A2 again at
    SF 1 in tiles of 2^20 rows, for its rows only, its carry overflowing
-   into the host merge; A1 and S1 at SF 1 in tiles of 2^21 rows when
+   into the host merge; A1, S1 and A2 at SF 1 in tiles of 2^21 rows when
    ``--sf`` is larger, ``FUNCTION_AT_SF1``), each
    row-exact against its numpy oracle (``function_oracle``) and timed like
    the window slice; none of them launches a hand-written kernel;
@@ -91,17 +91,34 @@ data is the same in every run.  The script
    ``complex_plan`` (C1, four collect aggregates over every ``orders`` row;
    C2, array constructors with lambdas over every ``lineitem`` row; C3,
    ROLLUP through GroupId; C4, a VARCHAR cast as grouping key; C5,
-   ``array_join`` over a collect, at SF 1 when ``--sf`` is larger,
+   ``array_join`` over a collect; C1 and C5 at SF 1 when ``--sf`` is larger,
    ``COMPLEX_AT_SF1``; C6, arrays of about 8.5 M elements back on the card;
    C7, ``split`` + Unnest; C8, a collect feeding an Unnest), each against
    its numpy oracle (``check_complex``), with its largest element pool, its
    render time and the path it is there for (asserted); none of them
    launches a hand-written kernel;
-12. prints a ``summary`` line (every query's time in one place), the
+12. runs the sketch / Spark slice (``spark_sketch``: one line each) over the
+   same tables: ``SPARK_SQL`` and ``spark_plan`` (H1 and H2, approx_distinct
+   through the HLL rewrite, grouped and over a DOUBLE's bits; P1, a median by
+   the KLL rewrite over the window barrier; P2, a 0.9 quantile by DDSketch;
+   B1, a Spark bloom filter of the orders of 1992 probed over every
+   ``lineitem`` row through a 1 MB ``X'...'`` literal; X1, Spark hashes,
+   dates, shifts and ``rand(42)``; X2, Spark string functions; X3,
+   ``first`` / ``last`` / ``collect_list`` / ``collect_set``), each against
+   its numpy oracle (``check_spark``: the HLL estimate bit for bit, KLL's
+   rank error, DDSketch's value error, the filter's bytes, the hashes from
+   the Spark specification) with the path it is there for asserted, and
+   timed like the window slice;
+13. generates SF-1 TPC-H with the port's dbgen (TPC's generator bit for
+   bit) and holds Q1, Q6 and Q3 to the TPC-H specification's published
+   answers to the cent and Q13 to its pinned rows (``dbgen_golden``; Q1
+   takes the piece path and launches ``grouped_piece_sums``);
+14. prints a ``summary`` line (every query's time in one place), the
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
-Every phase prints one JSON line; any failure ends the run with a traceback
-and a non-zero exit code.  ``bound_ms`` is bytes moved (each input read once,
+Every phase prints one JSON line (``at_s``: seconds since the start); any
+failure ends the run with a traceback and a non-zero exit code.
+``bound_ms`` is bytes moved (each input read once,
 each output written once; of selective_sum's value column only the 32-byte
 sectors that hold a passing row, since the others are never asked for) over
 the published device-memory rate of the H100 SXM, 3.35 TB/s, or integer
@@ -405,8 +422,13 @@ W5_CHUNKED_TILE_ROWS = 1 << 18
 # with an H100 (call 2 of the complex slice), A1 44.8 s and S1 39.8 s of it
 # with their oracles and profiled runs; in 2^21-row tiles SF-1 lineitem is 3
 # tiles, so A1 still accumulates across tiles in direct mode and S1's sort-mode
-# partials still go through the device carry merge (both asserted)
-FUNCTION_AT_SF1 = {"A1": 1 << 21, "S1": 1 << 21}
+# partials still go through the device carry merge (both asserted).  With the
+# sketch / Spark slice the script took 1 188 s (call 2 of that slice): A2 took
+# 50.7 s of it at SF 10 (16.5 s its oracle, 15.0 s its profiled run), and P1
+# still drives a 2^24-slot device carry without overflow at SF 10; at SF 1 in
+# 2^21-row tiles A2's 1.5 M groups stay inside the carry (2^21 slots) and merge
+# on the device across 3 tiles (asserted)
+FUNCTION_AT_SF1 = {"A1": 1 << 21, "S1": 1 << 21, "A2": 1 << 21}
 # A2 runs a second time at SF 1 in these tile rows (rows only): its 1.5 M
 # orders pass the carry's slots (at most a tile's rows), so the partial
 # groups of every new aggregate overflow into the host merge
@@ -1082,8 +1104,11 @@ COMPLEX_COLUMNS = {
 # C5's render is a Python loop over every element (``exec/strcast.py
 # _render_array_join``): at SF 10 a run took 18.2 s with an H100, 16.1 s of
 # it the render, and 43.7 s with its oracle and profiled run; at SF 1 its 1.5 M
-# elements still go through the collect and the render (asserted)
-COMPLEX_AT_SF1 = {"C5": 1 << 24}
+# elements still go through the collect and the render (asserted).  C1 follows
+# (31.1 s at SF 10 in call 2 of the sketch / Spark slice, whose script took
+# 1 188 s): C6 and C8 still drive the collect over 60 M SF-10 rows, and at SF 1
+# in 2^20-row tiles C1's four collects span two tiles (asserted)
+COMPLEX_AT_SF1 = {"C5": 1 << 24, "C1": 1 << 20}
 
 
 def complex_plan(name: str, builder, tables):
@@ -1284,8 +1309,768 @@ def check_complex(name: str, result, tables):
     raise KeyError(name)
 
 
+# ---------------------------------------------------------------------------
+# The sketch / Spark slice: approx_distinct (H1, H2), approx_percentile by the
+# KLL rewrite (P1) and by DDSketch (P2), a Spark bloom filter built from
+# orders and probed over lineitem (B1), Spark hashes, dates, shifts and rand
+# (X1), Spark string functions (X2) and the Spark aggregate aliases (X3).
+# Each is held against a numpy oracle below, written from the algorithms'
+# specifications, not from the port.  l_extendedprice is DECIMAL(12,2): the
+# sketches of H2, P1 and P2 take it cast to DOUBLE (a DECIMAL argument takes
+# approx_percentile's exact path; the HLL of H2 then hashes the DOUBLE's
+# IEEE bits).
+SPARK_SQL = {
+    "H1": "select l_shipmode, approx_distinct(l_partkey) as d from lineitem group by l_shipmode",
+    "H2": "select approx_distinct(cast(l_extendedprice as double)) as d from lineitem",
+    "P1": """
+select l_returnflag, approx_percentile(cast(l_extendedprice as double), 0.5) as med
+  from lineitem group by l_returnflag
+""",
+    "X1": """
+select pmod(l_orderkey, 7) as b, count(*) as n, min(hash(l_partkey, l_suppkey)) as h,
+       max(xxhash64(l_orderkey, l_linenumber)) as x,
+       max(datediff(l_receiptdate, l_shipdate)) as dd, min(add_months(l_shipdate, 1)) as am,
+       max(last_day(l_shipdate)) as ld, sum(shiftleft(l_linenumber, 3)) as sl,
+       min(rand(42)) as r0, max(rand(42)) as r1
+  from lineitem group by pmod(l_orderkey, 7)
+""",
+    "X2": """
+select substring_index(p_type, ' ', 1) as t, count(*) as n, max(crc32(p_name)) as c,
+       sum(instr(p_name, 'green')) as i, max(levenshtein(p_brand, 'Brand#11')) as lv
+  from part group by substring_index(p_type, ' ', 1)
+""",
+    # the build side of a runtime filter (Spark / Gluten): a Spark bloom filter
+    # of the orders of 1992, probed by ``B1_PROBE`` over every lineitem row
+    "B1": "select bloom_filter_agg(o_orderkey) as bf from orders where o_orderdate < date '1993-01-01'",
+}
+B1_PROBE = "select count(*) as n from lineitem where might_contain(X'{hex}', l_orderkey)"
+SPARK_COLUMNS = {
+    "H1": {"lineitem": ("l_shipmode", "l_partkey")},
+    "H2": {"lineitem": ("l_extendedprice",)},
+    "P1": {"lineitem": ("l_returnflag", "l_extendedprice")},
+    "P2": {"lineitem": ("l_shipmode", "l_extendedprice")},
+    "B1": {"orders": ("o_orderkey", "o_orderdate"), "lineitem": ("l_orderkey",)},
+    "X1": {"lineitem": ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+                        "l_shipdate", "l_receiptdate")},
+    "X2": {"part": ("p_type", "p_name", "p_brand")},
+    "X3": {"partsupp": ("ps_partkey", "ps_suppkey", "ps_availqty")},
+}
+SPARK_NAMES = ["H1", "H2", "P1", "P2", "B1", "X1", "X2", "X3"]
+HLL_REGISTERS = 2048
+ORACLE_CHUNK = 1 << 20  # rows an oracle computes at a time
+HLL_TOLERANCE = 4 * 0.023  # 4 standard errors of 2 048 registers
+KLL_POINTS = 256  # QueryConfig.kll_points: rank error at most 2/256 of a group
+DD_ALPHA = 0.005  # DDSketch's relative value error
+# the bound of a DDSketch bucket's representative, gamma^(b - 1/2) for the
+# values in (gamma^(b-1), gamma^b]: sqrt(gamma) - 1, 0.50125 %
+DD_BOUND = ((1 + DD_ALPHA) / (1 - DD_ALPHA)) ** 0.5 - 1
+
+
+def spark_plan(name: str, builder, tables):
+    """P2 and X3, built as plans: P2 with ``QueryConfig(percentile_sketch=
+    "ddsketch")`` (see ``spark_config``), X3 the Spark aggregate aliases
+    (their SQL spelling is not known to the SQL front end)."""
+    if name == "P2":
+        return (builder().table_scan(tables["lineitem"])
+                .project(["l_shipmode", "cast(l_extendedprice as double) as price"])
+                .aggregation(["l_shipmode"], ["approx_percentile(price, 0.9) as q"]).build())
+    assert name == "X3", name
+    return (builder().table_scan(tables["partsupp"])
+            .aggregation(["ps_partkey"], ["first(ps_suppkey) as f", "last(ps_suppkey) as la",
+                                          "collect_list(ps_suppkey) as cl",
+                                          "collect_set(ps_availqty) as cs"]).build())
+
+
+def spark_config(name: str):
+    from velox_tpu_torch.config import DEFAULT_CONFIG
+
+    return DEFAULT_CONFIG.copy(percentile_sketch="ddsketch") if name == "P2" else None
+
+
+_U64 = (1 << 64) - 1
+
+
+def _u64(c: int):
+    import numpy as np
+
+    return np.uint64(c & _U64)
+
+
+def hll_hash_np(words):
+    """The HLL hash of 64-bit words: splitmix64's finalizer (a multiply by
+    the golden gamma, then two xor-shift-multiply rounds), uint64."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        x = words.astype(np.int64).view(np.uint64) * _u64(0x9E3779B97F4A7C15)
+        x = x ^ (x >> np.uint64(31))
+        x = x * _u64(0xBF58476D1CE4E5B9)
+        return x ^ (x >> np.uint64(27))
+
+
+def hll_oracle(words, gid, ngroups: int):
+    """HyperLogLog with 2 048 registers: the register is the hash's top 11
+    bits, its value the leading zeros of the remaining 53 bits plus one (65
+    when they are all zero), merged by max; the estimate is the harmonic mean
+    with linear counting below 2.5 m, rounded half away from zero.  Returns
+    (estimate of every group, live registers of every group)."""
+    import math
+
+    import numpy as np
+
+    # the largest rho of every register: mark (register, rho), then the last
+    # mark of each register; in chunks of rows that stay in the caches
+    seen = np.zeros((ngroups * HLL_REGISTERS, 66), bool)
+    for lo in range(0, len(words), ORACLE_CHUNK):
+        h = hll_hash_np(words[lo:lo + ORACLE_CHUNK])
+        bucket = (h >> np.uint64(53)).astype(np.int64)
+        # the low 53 bits hold exactly in a double: frexp's exponent is their
+        # bit length, and the remainder's leading zeros are 53 minus it
+        _, length = np.frexp((h & np.uint64((1 << 53) - 1)).astype(np.float64))
+        rho = 54 - length.astype(np.int64)
+        rho[length == 0] = 65
+        seen[gid[lo:lo + ORACLE_CHUNK].astype(np.int64) * HLL_REGISTERS + bucket, rho] = True
+    regs = np.where(seen.any(axis=1), 65 - np.argmax(seen[:, ::-1], axis=1), 0)
+    regs = regs.reshape(ngroups, HLL_REGISTERS)
+    m = float(HLL_REGISTERS)
+    alpha = 0.7213 / (1.0 + 1.079 / HLL_REGISTERS)
+    out, live = [], []
+    for g in range(ngroups):
+        r = regs[g][regs[g] > 0]
+        v = len(r)
+        s = int(sum(1 << max(54 - int(x), 0) for x in r))
+        raw = (alpha * m * m) / (float(s) / float(1 << 54) + (m - float(v)))
+        guard = 1.0 if v >= HLL_REGISTERS else m - float(v)
+        est = m * math.log(m / guard) if (raw <= 2.5 * m and v < HLL_REGISTERS) else raw
+        out.append(int(math.floor(abs(est) + 0.5)))
+        live.append(v)
+    return out, live
+
+
+def twang_mix64_np(x):
+    """folly's twang_mix64 (the hash of Spark's bloom filter), uint64."""
+    import numpy as np
+
+    k = np.asarray(x).astype(np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        k = (~k) + (k << np.uint64(21))
+        k = k ^ (k >> np.uint64(24))
+        k = k * np.uint64(265)
+        k = k ^ (k >> np.uint64(14))
+        k = k * np.uint64(21)
+        k = k ^ (k >> np.uint64(28))
+        return k + (k << np.uint64(31))
+
+
+def spark_bloom_np(values, num_bits: int = 8_388_608):
+    """Spark's bloom_filter_agg of int64 values in its wire format: int8
+    version 1, int32 word count, little-endian uint64 words; a value sets 4
+    bits of one 64-bit block, from the low 24 bits of its hash, the block from
+    the bits above (velox BloomFilter.h; numBits capped at 4 194 304, 16 bits
+    a value, words = max(4, nextPow2(bits / 16) / 4))."""
+    import struct
+
+    import numpy as np
+
+    capacity = max(min(num_bits, 4_194_304) // 16, 1)
+    words = max(4, (1 << (capacity - 1).bit_length()) // 4)
+    h = twang_mix64_np(values)
+    mask = np.zeros(len(h), np.uint64)
+    for shift in (0, 6, 12, 18):
+        mask |= np.uint64(1) << ((h >> np.uint64(shift)) & np.uint64(63))
+    idx = ((h >> np.uint64(24)) & np.uint64(words - 1)).astype(np.int64)
+    out = np.zeros(words, np.uint64)
+    np.bitwise_or.at(out, idx, mask)
+    return struct.pack("<bi", 1, words) + out.astype("<u8").tobytes()
+
+
+def spark_bloom_probe_np(data: bytes, values):
+    import numpy as np
+
+    words = np.frombuffer(data, dtype="<u8", offset=5)
+    h = twang_mix64_np(values)
+    mask = np.zeros(len(h), np.uint64)
+    for shift in (0, 6, 12, 18):
+        mask |= np.uint64(1) << ((h >> np.uint64(shift)) & np.uint64(63))
+    idx = ((h >> np.uint64(24)) & np.uint64(len(words) - 1)).astype(np.int64)
+    return (words[idx] & mask) == mask
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _rotl32_np(x, r):
+    import numpy as np
+
+    return ((x << np.uint32(r)) | (x >> np.uint32(32 - r)))
+
+
+def murmur3_np(words, seed, nbytes: int):
+    """Spark's Murmur3_x86_32 of 4- or 8-byte little-endian words (a long is
+    two 4-byte blocks, low first), uint32 seeds per row."""
+    import numpy as np
+
+    u = words.astype(np.int64).view(np.uint64)
+    blocks = [(u & np.uint64(_M32)).astype(np.uint32)]
+    if nbytes == 8:
+        blocks.append((u >> np.uint64(32)).astype(np.uint32))
+    h = np.broadcast_to(np.asarray(seed, np.uint32), u.shape).copy()
+    with np.errstate(over="ignore"):
+        for k in blocks:
+            k = k * np.uint32(0xCC9E2D51)
+            k = _rotl32_np(k, 15) * np.uint32(0x1B873593)
+            h = _rotl32_np(h ^ k, 13) * np.uint32(5) + np.uint32(0xE6546B64)
+        h = h ^ np.uint32(nbytes)
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(0xC2B2AE35)
+        return h ^ (h >> np.uint32(16))
+
+
+_XXP = (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+        0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5)
+
+
+def xxhash64_np(words, seed, nbytes: int):
+    """Spark's XXH64 of one 4- or 8-byte little-endian value (hashInt /
+    hashLong), uint64 seeds per row."""
+    import numpy as np
+
+    p1, p2, p3, p4, p5 = (np.uint64(p) for p in _XXP)
+
+    def rotl(x, r):
+        return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+    u = words.astype(np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        h = np.asarray(seed, np.uint64) + p5 + np.uint64(nbytes)
+        if nbytes == 8:
+            h = h ^ (rotl(u * p2, 31) * p1)
+            h = rotl(h, 27) * p1 + p4
+        else:
+            h = h ^ ((u & np.uint64(_M32)) * p1)
+            h = rotl(h, 23) * p2 + p3
+        h = h ^ (h >> np.uint64(33))
+        h = h * p2
+        h = h ^ (h >> np.uint64(29))
+        h = h * p3
+        return h ^ (h >> np.uint64(32))
+
+
+def rand_np(seed: int, index):
+    """Spark rand(seed) as this engine defines it: splitmix64 of (seed,
+    global row index), the top 53 bits over 2^53."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        z = index.astype(np.uint64) * _u64(0x9E3779B97F4A7C15) + _u64(seed)
+        z = (z ^ (z >> np.uint64(30))) * _u64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * _u64(0x94D049BB133111EB)
+        z = z ^ (z >> np.uint64(31))
+    return (z >> np.uint64(11)).astype(np.float64) * (1.0 / (1 << 53))
+
+
+def _group_reduce(values, order, starts, op):
+    """Per-group min / max / sum of ``values`` over rows sorted by group
+    (``order``), the groups starting at ``starts`` (every group has rows)."""
+    import numpy as np
+
+    fn = {"min": np.minimum, "max": np.maximum, "sum": np.add}[op]
+    return fn.reduceat(values[order], starts)
+
+
+def _civil_np(days):
+    """(first day of the month, days in the month) of int32 days, numpy."""
+    import numpy as np
+
+    d = days.astype("M8[D]")
+    month = d.astype("M8[M]")
+    first = month.astype("M8[D]")
+    return month, first, ((month + 1).astype("M8[D]") - first).astype(np.int64)
+
+
+def _result_by_key(result, key: str):
+    """{key value: {column: value}} of a result Table (strings decoded)."""
+    import numpy as np
+
+    cols = {}
+    for name in result.schema.names:
+        values = np.asarray(result.columns[name])
+        if name in result.string_tables:
+            values = result.string_tables[name].decode(values)
+        cols[name] = values
+    keys = cols[key]
+    return {(k.item() if hasattr(k, "item") else k): {c: v[i] for c, v in cols.items()}
+            for i, k in enumerate(keys)}
+
+
+def check_spark(name: str, result, tables, ex, extra):
+    """Hold a ``SPARK_SQL`` / ``spark_plan`` result against its numpy oracle;
+    returns the fields the line prints (the sketches' errors beside their
+    bounds).  ``extra`` holds what B1's two queries measured."""
+    import numpy as np
+
+    if name in ("H1", "H2"):
+        li = tables["lineitem"]
+        if name == "H1":
+            words = small = _col(li, "l_partkey")
+            gid, keys = _code_groups(li, "l_shipmode")
+            keys = [k[0] for k in keys]
+        else:
+            # distinct doubles of price / 100 are the distinct unscaled prices
+            small = _col(li, "l_extendedprice")
+            words = (small.astype(np.float64) / 100).view(np.int64)
+            gid, keys = np.zeros(li.num_rows, np.int64), [None]
+        want, live = hll_oracle(words, gid, len(keys))
+        # exact distinct counts by presence marks (the words are small keys)
+        base = small - small.min()
+        seen = np.zeros((len(keys), int(base.max()) + 1), bool)
+        seen[gid, base] = True
+        exact_all = seen.sum(axis=1)
+        got = (_result_by_key(result, "l_shipmode") if name == "H1"
+               else {None: {"d": np.asarray(result.columns["d"])[0]}})
+        assert sorted(map(repr, got)) == sorted(map(repr, keys)), (list(got), keys)
+        exact, rel = [], []
+        for g, key in enumerate(keys):
+            d = int(got[key]["d"])
+            assert d == want[g], (name, key, d, want[g])
+            n = int(exact_all[g])
+            exact.append(n)
+            rel.append(abs(d - n) / n)
+        assert max(rel) <= HLL_TOLERANCE, rel
+        return dict(estimates=want, exact_distinct=exact, relative_error=rel,
+                    error_bound=HLL_TOLERANCE, live_registers=live)
+    if name in ("P1", "P2"):
+        li = tables["lineitem"]
+        key = "l_returnflag" if name == "P1" else "l_shipmode"
+        p = 0.5 if name == "P1" else 0.9
+        out = "med" if name == "P1" else "q"
+        price = np.asarray(li.columns["l_extendedprice"]).astype(np.float64) / 100
+        gid, keys = _code_groups(li, key)
+        got = _result_by_key(result, key)
+        assert len(got) == len(keys), (list(got), keys)
+        errs = []
+        for g, (k,) in enumerate(keys):
+            v = price[gid == g]
+            est, n = float(got[k][out]), len(v)
+            if name == "P1":
+                # the estimate's rank in its group within p +- 2/256 of its size
+                lo, hi = int((v < est).sum()), int((v <= est).sum()) - 1
+                target = np.floor(p * n)
+                dist = max(lo - target, target - hi, 0) / n
+                assert dist <= 2.0 / KLL_POINTS, (k, est, dist)
+                errs.append(float(dist))
+            else:
+                # the rank rule of the DDSketch finisher: element floor(p * n)
+                rank = min(n - 1, int(np.floor(p * n)))
+                exact = np.partition(v, rank)[rank]
+                rel = abs(est - exact) / exact
+                assert rel <= DD_BOUND * (1 + 1e-9), (k, est, exact, rel)  # + rounding
+                errs.append(rel)
+        return dict(errors=errs, error_bound=2.0 / KLL_POINTS if name == "P1" else DD_BOUND)
+    if name == "B1":
+        orders, li = tables["orders"], tables["lineitem"]
+        keys = _col(orders, "o_orderkey")[np.asarray(orders.columns["o_orderdate"]) < _days("1993-01-01")]
+        want = spark_bloom_np(keys)
+        assert extra["filter"] == want, "bloom filter bytes"
+        lkeys = _col(li, "l_orderkey")
+        hits = spark_bloom_probe_np(want, lkeys)
+        in_build = np.zeros(int(max(lkeys.max(), keys.max())) + 1, bool)
+        in_build[keys] = True
+        member = in_build[lkeys]
+        assert hits[member].all(), "a false negative"
+        n = int(np.asarray(result.columns["n"])[0])
+        assert n == int(hits.sum()), (n, int(hits.sum()))
+        fp = int((hits & ~member).sum())
+        return dict(build_keys=int(len(keys)), filter_bytes=len(want), rows_passing=n,
+                    rows_in_build_set=int(member.sum()),
+                    false_positive_rate=fp / max(1, int((~member).sum())))
+    if name == "X1":
+        li = tables["lineitem"]
+        ok, pk, sk = _col(li, "l_orderkey"), _col(li, "l_partkey"), _col(li, "l_suppkey")
+        ln = _col(li, "l_linenumber")
+        ship, receipt = _col(li, "l_shipdate"), _col(li, "l_receiptdate")
+        # add_months / last_day over the few distinct days, then gathered
+        first_day = int(ship.min())
+        days = np.arange(first_day, int(ship.max()) + 1)
+        month, first, dim = _civil_np(days)
+        nmonth, nfirst, ndim = _civil_np((month + 1).astype("M8[D]").astype(np.int64))
+        am_of = nfirst.astype(np.int64) + np.minimum(days - first.astype(np.int64), ndim - 1)
+        ld_of = first.astype(np.int64) + dim - 1
+        ops = {"h": "min", "x": "max", "dd": "max", "am": "min", "ld": "max", "sl": "sum",
+               "r0": "min", "r1": "max"}
+        combine = {"min": np.minimum, "max": np.maximum, "sum": np.add}
+        want = {"n": np.bincount(ok % 7, minlength=7)}
+        # in chunks of rows that stay in the caches, each reduced by group
+        for lo in range(0, li.num_rows, ORACLE_CHUNK):
+            part = slice(lo, lo + ORACLE_CHUNK)
+            gid = ok[part] % 7
+            order, starts, present = _groups(gid)
+            assert len(present) == 7  # every group in every chunk
+            r = rand_np(42, np.arange(lo, lo + len(gid), dtype=np.int64))
+            values = {
+                "h": murmur3_np(sk[part], murmur3_np(pk[part], np.uint32(42), 8), 8).view(np.int32),
+                "x": xxhash64_np(ln[part], xxhash64_np(ok[part], np.uint64(42), 8), 4).view(np.int64),
+                "dd": receipt[part] - ship[part],
+                "am": am_of[ship[part] - first_day], "ld": ld_of[ship[part] - first_day],
+                "sl": ln[part] << 3, "r0": r, "r1": r,
+            }
+            for col, op in ops.items():
+                reduced = _group_reduce(values[col], order, starts, op)
+                want[col] = reduced if col not in want else combine[op](want[col], reduced)
+        got = _result_by_key(result, "b")
+        assert sorted(got) == list(range(7)), list(got)
+        for col, values in want.items():
+            for b in range(7):
+                assert got[b][col] == values[b], (col, b, got[b][col], values[b])
+        return dict(groups=7, rand_rows=int(li.num_rows))
+    if name == "X2":
+        import zlib
+
+        part = tables["part"]
+
+        def per_entry(col, fn, dtype):
+            values = part.string_tables[col].values()
+            return np.asarray([fn(v) for v in values], dtype)[np.asarray(part.columns[col])]
+
+        word = per_entry("p_type", lambda v: v.split(" ")[0], object)
+        crc = per_entry("p_name", lambda v: zlib.crc32(v.encode()), np.int64)
+        instr = per_entry("p_name", lambda v: v.find("green") + 1, np.int64)
+        lev = per_entry("p_brand", lambda v: _levenshtein_py(v, "Brand#11"), np.int64)
+        words = sorted(set(word))
+        gid = np.searchsorted(np.asarray(words, object), word)
+        got = _result_by_key(result, "t")
+        assert sorted(got) == words, (list(got), words)
+        for g, w in enumerate(words):
+            m = gid == g
+            row = got[w]
+            assert (row["n"], row["c"], row["i"], row["lv"]) == (
+                int(m.sum()), int(crc[m].max()), int(instr[m].sum()), int(lev[m].max())), (w, row)
+        return dict(groups=len(words), name_entries=len(part.string_tables["p_name"].values()))
+    assert name == "X3", name
+    ps = tables["partsupp"]
+    pk, sk, aq = _col(ps, "ps_partkey"), _col(ps, "ps_suppkey"), _col(ps, "ps_availqty")
+    order, starts, keys = _groups(pk)
+    sizes = np.diff(np.append(starts, len(pk)))
+    rorder = _by_key(result, "ps_partkey")
+    assert np.array_equal(np.asarray(result.columns["ps_partkey"])[rorder], keys)
+    smallest = np.minimum.reduceat(sk[order], starts)
+    for col in ("f", "la"):  # first / last: the reference's arbitrary, the smallest
+        assert np.array_equal(np.asarray(result.columns[col]).astype(np.int64)[rorder], smallest), col
+    lists, sets = result.columns["cl"], result.columns["cs"]
+
+    def flat(seg):
+        """(sizes, elements) of an ARRAY column, its rows in key order."""
+        lens = np.asarray(seg.sizes).astype(np.int64)
+        offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        vals = np.asarray(seg.children[0]).astype(np.int64)
+        lens_k = lens[rorder]
+        out_starts = np.cumsum(lens_k) - lens_k
+        pos = np.repeat(offs[rorder] - out_starts, lens_k) + np.arange(int(lens_k.sum()))
+        return lens_k, vals[pos]
+
+    lens, vals = flat(lists)
+    assert np.array_equal(lens, sizes) and np.array_equal(vals, sk[order]), "collect_list"
+    uniq = np.lexsort((aq[order], pk[order]))
+    a_sorted, p_sorted = aq[order][uniq], pk[order][uniq]
+    keep = np.ones(len(a_sorted), bool)
+    keep[1:] = (a_sorted[1:] != a_sorted[:-1]) | (p_sorted[1:] != p_sorted[:-1])
+    lens, vals = flat(sets)
+    assert np.array_equal(lens, np.bincount(np.searchsorted(keys, p_sorted[keep]),
+                                            minlength=len(keys)))
+    # set order inside a row is not specified: compare each row sorted
+    got_sorted = vals[np.lexsort((vals, np.repeat(np.arange(len(lens)), lens)))]
+    assert np.array_equal(got_sorted, a_sorted[keep]), "collect_set"
+    return dict(groups=int(len(keys)), list_elements=int(len(sk)), set_elements=int(keep.sum()))
+
+
+def _agg_call_names(node, out=None):
+    """The aggregate call names of a plan tree."""
+    out = set() if out is None else out
+    for c in getattr(node, "aggregates", ()):
+        out.add(c.name)
+    for s in getattr(node, "sources", ()):
+        _agg_call_names(s, out)
+    return out
+
+
+def run_spark_text(name: str, cache, tile_rows: int):
+    """One text of the sketch / Spark slice over the tables of ``cache``, as a
+    caller of ``run_sql`` waits for it (B1: its build text, the filter
+    fetched, then its probe text with the filter as a literal), held against
+    its oracle on the first run; then timed as ``run_slice_text`` times a
+    text.  Asserts the path the text is there for."""
+    import torch
+
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.sql import plan_sql
+    from velox_tpu_torch.utils.spark_bloom import probe_uploads
+
+    tables = {t: cache.table(t).select(list(c)) for t, c in SPARK_COLUMNS[name].items()}
+    t0 = time.perf_counter()
+    if name in SPARK_SQL:
+        plan = plan_sql(SPARK_SQL[name], tables)
+    else:
+        plan = spark_plan(name, PlanBuilder, tables)
+    plan_s = time.perf_counter() - t0
+    config = spark_config(name)
+    extra = {}
+
+    def once():
+        ex = LocalExecutor(plan, tile_rows=tile_rows, config=config, device=DEVICE)
+        result = ex.run()
+        if name != "B1":
+            return [ex], result
+        data = result.to_pandas()["bf"][0]  # VARBINARY rides as a dictionary code
+        t1 = time.perf_counter()
+        probe_plan = plan_sql(B1_PROBE.format(hex=data.hex()), {"lineitem": tables["lineitem"]})
+        extra.update(filter=data, probe_plan_s=time.perf_counter() - t1)
+        probe = LocalExecutor(probe_plan, tile_rows=tile_rows, device=DEVICE)
+        return [ex, probe], probe.run()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exs, result = once()
+    walls = [(time.perf_counter() - t0) * 1e3]
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    check = check_spark(name, result, tables, exs[0], extra)
+    oracle_s = time.perf_counter() - t0
+    ex = exs[-1]
+    # the path the text is there for
+    names = set()
+    for e in exs:
+        names |= _agg_call_names(e.root)
+    assert not names & {"approx_distinct", "approx_percentile", "bloom_filter_agg"}, names
+    path = {}
+    if name in ("H1", "H2"):
+        registers = [a["groups_out"] for a in aggregation_report(ex)
+                     if a["groups_out"] is not None and a["groups_out"] > 7]
+        ngroups = 7 if name == "H1" else 1
+        assert registers and max(registers) <= ngroups * HLL_REGISTERS, aggregation_report(ex)
+        path = dict(register_rows=max(registers), register_rows_bound=ngroups * HLL_REGISTERS)
+    elif name == "P1":
+        assert "__kll_quantile" in names and ex.window_chunks, names
+    elif name == "P2":
+        assert "__dd_quantile" in names and "__kll_quantile" not in names, names
+    elif name == "B1":
+        probes = [f for f in _call_names(exs[1].root) if f.startswith("__bloom_probe_")]
+        assert "__bloom_assemble" in names and len(probes) == 1, (names, probes)
+        path = dict(probe_function=probes[0], probe_plan_s=extra["probe_plan_s"],
+                    literal_chars=len(extra["filter"]) * 2)
+    elif name == "X1":
+        tiles = -(-tables["lineitem"].num_rows // tile_rows)
+        assert tiles > 1, tiles  # rand(42) over the global row index of every tile
+        path = dict(tiles=tiles)
+    elif name == "X2":
+        # the string functions were evaluated once per dictionary entry while
+        # the text was planned: no call of them is left in the plan
+        left = _call_names(plan) & {"substring_index", "crc32", "instr", "levenshtein"}
+        assert not left, left
+        path = dict(bound_at_planning_s=plan_s)
+    elif name == "X3":
+        assert "collect_agg" in [a["kind"] for a in aggregation_report(ex)], aggregation_report(ex)
+    fields = dict(
+        name=name, sf=cache.sf, tile_rows=tile_rows,
+        rows_in={t: v.num_rows for t, v in tables.items()}, result_rows=result.num_rows,
+        plan_s=plan_s, build_s=sum(e.build_seconds for e in exs), kind=ex.kind,
+        window_passes=sum(len(e.window_chunks) for e in exs),
+        window_largest_pass_rows=max((r for e in exs for _, r in e.window_chunks), default=0),
+        aggregations=[a for e in exs for a in aggregation_report(e)],
+        device_peak_bytes_first_run=peak, oracle_s=oracle_s, correct=True,
+        check=check, path=path,
+    )
+    del exs, ex, result
+    torch.cuda.empty_cache()
+    long_run = walls[0] > LONG_QUERY_S * 1e3
+    for _ in range(0 if long_run else WHOLE_RUNS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        once()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    busy, top = device_busy_ms(once, top=4)
+    profiled_ms = (time.perf_counter() - t0) * 1e3
+    query_ms = statistics.median(walls)
+    if name == "B1":
+        # every run bound the same literal: its words went to the card once
+        fields["path"]["probe_uploads"] = probe_uploads(fields["path"]["probe_function"])
+        assert fields["path"]["probe_uploads"] == 1, fields["path"]
+    fields.update(
+        query_ms=query_ms, query_runs_ms=walls, profiled_run_ms=profiled_ms,
+        query_device_busy_ms=busy,
+        query_host_share=None if busy is None else max(0.0, 1.0 - busy / query_ms),
+        query_top_kernels=top,
+    )
+    return fields
+
+
+def _call_names(node, out=None):
+    """The scalar call names of a plan's project and filter expressions."""
+    out = set() if out is None else out
+
+    def walk(e):
+        if hasattr(e, "name") and hasattr(e, "args"):
+            out.add(e.name)
+        for c in getattr(e, "children", ()) or ():
+            walk(c)
+
+    for e in getattr(node, "exprs", ()) or ():
+        walk(e)
+    if getattr(node, "filter", None) is not None:
+        walk(node.filter)
+    if getattr(node, "predicate", None) is not None:
+        walk(node.predicate)
+    for s in getattr(node, "sources", ()):
+        _call_names(s, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dbgen_golden: the port's dbgen (TPC's generator, bit for bit) at SF 1, the
+# scale of the TPC-H specification's published validation answers, and the
+# hand-built Q1, Q6 and Q3 plans held to those answers to the cent.  Q13
+# depends on o_comment, whose text pool in the reference generator differs
+# from classic dbgen's; its rows are pinned from the reference generator.
+
+# TPC-H specification, validation answer set for SF 1: Q1 (returnflag,
+# linestatus, sum_qty, sum_base_price, sum_disc_price, sum_charge,
+# count_order)
+Q1_GOLDEN = [
+    ("A", "F", 37734107.00, 56586554400.73, 53758257134.87, 55909065222.83, 1478493),
+    ("N", "F", 991417.00, 1487504710.38, 1413082168.05, 1469649223.19, 38854),
+    ("N", "O", 74476040.00, 111701729697.74, 106118230307.61, 110367043872.50, 2920374),
+    ("R", "F", 37719753.00, 56568041380.90, 53741292684.60, 55889619119.83, 1478870),
+]
+# TPC-H specification, validation answer for SF 1: Q6 revenue
+Q6_GOLDEN = 123141078.23
+# TPC-H specification, validation answer set for SF 1: Q3 (l_orderkey,
+# revenue, o_orderdate, o_shippriority), top 10
+Q3_GOLDEN = [
+    (2456423, 406181.0111, "1995-03-05", 0), (3459808, 405838.6989, "1995-03-04", 0),
+    (492164, 390324.0610, "1995-02-19", 0), (1188320, 384537.9359, "1995-03-09", 0),
+    (2435712, 378673.0558, "1995-02-26", 0), (4878020, 378376.7952, "1995-03-12", 0),
+    (5521732, 375153.9215, "1995-03-13", 0), (2628192, 373133.3094, "1995-02-22", 0),
+    (993600, 371407.4595, "1995-03-05", 0), (2300070, 367371.1452, "1995-03-13", 0),
+]
+# Q13 (c_count, custdist) at SF 1, pinned from the reference generator's
+# compiled output (velox/tpch/gen/dbgen with its 10 MB text pool)
+Q13_GOLDEN = [
+    (0, 50004), (10, 6668), (9, 6563), (11, 6004), (8, 5890), (12, 5600), (13, 5029),
+    (19, 4805), (7, 4680), (18, 4531), (20, 4507), (14, 4473), (15, 4463), (17, 4445),
+    (16, 4410), (21, 4168), (22, 3742), (6, 3273), (23, 3189), (24, 2700), (25, 2090),
+    (5, 1957), (26, 1653), (27, 1177), (4, 1010), (28, 901), (29, 564), (3, 408),
+    (30, 378), (31, 242), (32, 133), (2, 128), (33, 72), (34, 52), (35, 32), (36, 20),
+    (1, 20), (37, 8), (38, 4), (41, 3), (40, 3), (39, 1),
+]
+# dbgen_golden's tiles: SF-1 lineitem is two of them
+DBGEN_TILE_ROWS = 1 << 22
+DBGEN_LINEITEM = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                  "l_returnflag", "l_linestatus", "l_shipdate"]
+
+
+def dbgen_tables(sf: float):
+    """The port's dbgen tables the golden queries read, and the seconds each
+    took to generate (orders and lineitem share one generation)."""
+    from velox_tpu_torch.connectors.tpch import dbgen
+
+    seconds = {}
+    t0 = time.perf_counter()
+    raw = dbgen.gen_orders_lineitem(sf)
+    seconds["orders_lineitem_numeric"] = time.perf_counter() - t0
+    out = {}
+    for name, cols in (("lineitem", DBGEN_LINEITEM),
+                       ("orders", ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority",
+                                   "o_comment"]),
+                       ("customer", ["c_custkey", "c_mktsegment"])):
+        t0 = time.perf_counter()
+        out[name] = dbgen.table(name, sf, cols, raw_orders_lineitem=raw)
+        seconds[name] = time.perf_counter() - t0
+    return out, seconds
+
+
+def golden_rows(num: int, result):
+    """A golden query's result as the published answer's rows: Q1 sorted by
+    its flags with the sums to the cent, Q6 its revenue to the cent, Q3 its
+    rows with revenue to 1e-4 and the date as text, Q13 its rows."""
+    import numpy as np
+
+    df = result.to_pandas()
+    if num == 1:
+        df = df.sort_values(["l_returnflag", "l_linestatus"]).reset_index(drop=True)
+        return [(r.l_returnflag, r.l_linestatus, round(float(r.sum_qty), 2),
+                 round(float(r.sum_base_price), 2), round(float(r.sum_disc_price), 2),
+                 round(float(r.sum_charge), 2), int(r.count_order)) for r in df.itertuples()]
+    if num == 6:
+        return round(float(df["revenue"][0]), 2)
+    if num == 3:
+        dates = np.datetime_as_string(
+            np.asarray(df["o_orderdate"]).astype(np.int64).astype("M8[D]"), unit="D")
+        return [(int(r.l_orderkey), round(float(r.revenue), 4), str(d), int(r.o_shippriority))
+                for r, d in zip(df.itertuples(), dates)]
+    return [(int(r.c_count), int(r.custdist)) for r in df.itertuples()]
+
+
+GOLDEN = {1: Q1_GOLDEN, 6: Q6_GOLDEN, 3: Q3_GOLDEN, 13: Q13_GOLDEN}
+
+
+def golden_plan(num: int, tables):
+    from velox_tpu_torch.connectors.tpch.plans import build_q1, build_q3, build_q6, build_q13
+
+    li = tables["lineitem"]
+    if num == 1:
+        return build_q1(li)
+    if num == 6:
+        return build_q6(li)
+    if num == 3:
+        return build_q3(tables["customer"], tables["orders"], li)
+    return build_q13(tables["customer"], tables["orders"])
+
+
+def run_dbgen_golden(sf: float, tile_rows: int, device=None):
+    """Generate the dbgen tables, run Q1, Q6, Q3 and Q13 through
+    ``LocalExecutor`` on ``device`` (None: the script's) and hold each to its
+    published answer; returns the line's fields (the generation seconds, each
+    query's seconds, Q1's grouped_piece_sums launches and piece path)."""
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.ops.group_piece import grouped_piece_sums
+
+    t0 = time.perf_counter()
+    tables, seconds = dbgen_tables(sf)
+    fields = dict(sf=sf, tile_rows=tile_rows, generate_s=time.perf_counter() - t0,
+                  generate_parts_s=seconds,
+                  rows={k: v.num_rows for k, v in tables.items()})
+    if sf == 1.0:
+        assert tables["lineitem"].num_rows == 6_001_215, tables["lineitem"].num_rows
+        assert tables["orders"].num_rows == 1_500_000
+    for num in (1, 6, 3, 13):
+        before = grouped_piece_sums.launches
+        t0 = time.perf_counter()
+        ex = LocalExecutor(golden_plan(num, tables), tile_rows=tile_rows,
+                           device=device or DEVICE)
+        result = ex.run()
+        fields[f"q{num}_s"] = time.perf_counter() - t0
+        if sf == 1.0:
+            got = golden_rows(num, result)
+            assert got == GOLDEN[num], (num, got, GOLDEN[num])
+        if num == 1:
+            fields["q1_piece_path"] = bool(ex.use_piece)
+            fields["q1_k2_launches"] = grouped_piece_sums.launches - before
+        fields[f"q{num}_result_rows"] = result.num_rows
+    fields["correct"] = sf == 1.0
+    return fields
+
+
+_T0 = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line a phase; ``at_s`` is the seconds since the script began."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _T0, **fields},
+                     default=float), flush=True)
 
 
 def median_ms(fn, runs: int) -> float:
@@ -1647,7 +2432,7 @@ class TpchTables:
         self.columns = {}
         for cols in (*QUERY_COLUMNS.values(), *WINDOW_COLUMNS.values(),
                      *WINDOW_PLAN_COLUMNS.values(), *FUNCTION_COLUMNS.values(),
-                     *COMPLEX_COLUMNS.values()):
+                     *COMPLEX_COLUMNS.values(), *SPARK_COLUMNS.values()):
             for name, names in cols.items():
                 self.columns.setdefault(name, set()).update(names)
         self._tables = {}
@@ -2085,8 +2870,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    try:
+        import pyarrow
+
+        pyarrow_import = f"ok {pyarrow.__version__}"
+    except ImportError as exc:
+        pyarrow_import = f"fails: {exc}"
     say("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
-        torch=torch.__version__, cuda=torch.version.cuda)
+        torch=torch.__version__, cuda=torch.version.cuda, pyarrow_import=pyarrow_import)
 
     t0 = time.perf_counter()
     path = cuda_build.build(verbose=args.ptxas)
@@ -2265,7 +3056,7 @@ def main() -> int:
             [agg] = fields["aggregations"]
             tiles = -(-fields["rows_in"]["lineitem"] // FUNCTION_AT_SF1[name])
             assert tiles > 1, fields
-            if name == "S1":
+            if name in ("S1", "A2"):
                 assert agg["kind"] == "sort_agg_device" and agg["carry_groups"], agg
             else:
                 assert agg["kind"] == "direct_agg", agg
@@ -2303,6 +3094,8 @@ def main() -> int:
         kinds = [a["kind"] for a in fields["aggregations"]]
         if name in ("C1", "C5", "C6", "C8"):
             assert "collect_agg" in kinds, fields
+        if name == "C1" and args.sf > 1:
+            assert fields["rows_in"]["orders"] > COMPLEX_AT_SF1["C1"], fields  # two tiles
         if name == "C3":
             assert fields["plan_node_kinds"] == ["GroupId(sets=3)"], fields
         if name in ("C7", "C8"):
@@ -2316,6 +3109,23 @@ def main() -> int:
         summary[f"complex {name}"] = [None, None, fields["build_s"], fields["query_ms"],
                                       fields["query_device_busy_ms"]]
     assert before == dict((name, w.launches) for name, w in wrappers.items())
+
+    # ---- the sketch / Spark slice (H1, H2, P1, P2, B1, X1, X2, X3), each
+    # against its numpy oracle with the path it is there for asserted; then
+    # dbgen at SF 1 and the published TPC-H answers
+    for name in SPARK_NAMES:
+        before = dict((n, w.launches) for n, w in wrappers.items())
+        fields = run_spark_text(name, cache, args.tile_rows)
+        fields["hand_kernel_launches"] = {n: w.launches - before[n] for n, w in wrappers.items()}
+        say("spark_sketch", **fields)
+        summary[f"spark {name}"] = [None, None, fields["build_s"], fields["query_ms"],
+                                    fields["query_device_busy_ms"]]
+    fields = run_dbgen_golden(1.0, DBGEN_TILE_ROWS)
+    # dbgen keeps gen.py's column representation: Q1 takes the piece path
+    assert fields["q1_piece_path"] and fields["q1_k2_launches"] > 0, fields
+    say("dbgen_golden", **fields)
+    summary["dbgen q1 q6 q3 q13"] = [None, None, fields["generate_s"],
+                                     sum(fields[f"q{n}_s"] for n in (1, 6, 3, 13)) * 1e3, None]
     say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

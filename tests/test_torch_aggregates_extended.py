@@ -236,27 +236,36 @@ def test_checksum_order_independent():
 
 def test_aggregate_names_match_reference():
     """The port binds every name of the reference's ``AGGREGATE_NAMES`` and
-    ``COLLECT_AGG_NAMES`` but the sketches (Queue 1 item 6: approx_distinct,
-    bloom_filter_agg, approx_percentile and the sketch rewrite's internal
-    names), which raise ``KeyError`` by name; the collect aggregates bind to
-    ``exec/collect_agg.py``."""
+    ``COLLECT_AGG_NAMES``, the sketches included: approx_distinct and
+    bloom_filter_agg type their node for the sketch rewrite (their update
+    raises: the rewrite lowers them before a plan runs), approx_percentile
+    and the rewrite's finishers bind to ``exec/collect_agg.py`` as the other
+    collect aggregates do; the Spark aliases bind to their targets."""
     from velox_tpu.exec.collect_agg import COLLECT_AGG_NAMES as REF_COLLECT
+    from velox_tpu_torch.dtypes import DOUBLE, VARBINARY
     from velox_tpu_torch.exec.collect_agg import COLLECT_AGG_NAMES, CollectAggregate
 
-    later = {"approx_distinct": 6, "bloom_filter_agg": 6}
-    sketch_collect = {"approx_percentile", "__dd_quantile", "__kll_quantile", "__bloom_assemble"}
-    assert set(AGGREGATE_NAMES) == set(REF_NAMES) - set(later)
-    assert set(COLLECT_AGG_NAMES) == set(REF_COLLECT) - sketch_collect
+    assert set(AGGREGATE_NAMES) == set(REF_NAMES)
+    assert set(COLLECT_AGG_NAMES) == set(REF_COLLECT)
     assert set(COLLECT_AGG_NAMES).isdisjoint(AGGREGATE_NAMES)
     arg_types = {"map_agg": (BIGINT, BIGINT), "multimap_agg": (BIGINT, BIGINT),
                  "map_union": (map_(BIGINT, BIGINT),),
-                 "approx_most_frequent": (BIGINT, BIGINT, BIGINT)}
+                 "approx_most_frequent": (BIGINT, BIGINT, BIGINT),
+                 "approx_percentile": (BIGINT, DOUBLE),
+                 "__dd_quantile": (BIGINT, BIGINT, DOUBLE),
+                 "__kll_quantile": (BIGINT, BIGINT, BIGINT, DOUBLE),
+                 "__bloom_assemble": (BIGINT, BIGINT, BIGINT)}
     for name in COLLECT_AGG_NAMES:
         bound = bind_aggregate(name, arg_types.get(name, (BIGINT,)))
         assert isinstance(bound, CollectAggregate) and bound.name == name
-    for name in list(later) + sorted(sketch_collect):
-        with pytest.raises(KeyError, match=name):
-            bind_aggregate(name, (BIGINT,))
+    for name, result in (("approx_distinct", BIGINT), ("bloom_filter_agg", VARBINARY)):
+        bound = bind_aggregate(name, (BIGINT,))
+        assert bound.name == name and bound.result_type == result
+        with pytest.raises(NotImplementedError, match="rewrite_sketch_aggregates"):
+            bound.raw_inputs((np.zeros(2, np.int64),), np.ones(2, bool))
+    for alias, target in (("first", "arbitrary"), ("last", "arbitrary"),
+                          ("collect_list", "array_agg"), ("collect_set", "set_agg")):
+        assert bind_aggregate(alias, (BIGINT,)).name == target
 
 
 def test_new_aggregates_stay_off_the_piece_path():

@@ -2,10 +2,9 @@
 ``tests/test_collect_agg.py`` — array_agg, set_agg, map_agg, histogram and
 map_union beside classic aggregates, global and NULL inputs, several tiles,
 after a filter, entropy, multimap_agg, reduce_agg and the lowering of
-approx_most_frequent — on the same rows, with the reference test's expected
-rows.  ``approx_percentile`` lowers onto the JAX package's sketch rewrite and
-comes with the sketch slice (ROADMAP Queue 1 item 6): it raises ``KeyError``
-in the port.  Grouping keys that hold NULLs are held to expected rows: the
+approx_most_frequent, and approx_percentile beside them (a mixed node the
+sketch rewrite splits, each percentile through the KLL rewrite) — on the
+same rows, with the reference test's expected rows.  Grouping keys that hold NULLs are held to expected rows: the
 JAX package assembles the groups by the raw key values and merges a NULL key
 into the group of the value under it (ROADMAP Queue 3)."""
 
@@ -118,12 +117,14 @@ def test_most_frequent_and_percentile():
         return k.B().table_scan(t).aggregation(["g"], aggs).build()
 
     out = _both(lambda k: make(k, [
+        "approx_percentile(x, 0.5) as p50", "approx_percentile(x, 0.99) as p99",
         "approx_most_frequent(1, s, 10) as top1", "approx_most_frequent(2, x, 10) as top2",
     ]), "g")
+    # a few rows a group: the rank-compressed ECDF keeps every row, exact
+    assert out["p50"] == [30, 7]
+    assert out["p99"] == [40, 7]
     assert out["top1"] == [{"a": 3}, {"c": 2}]
     assert out["top2"] == [{10: 1, 20: 1}, {5: 1, 7: 1}]
-    with pytest.raises(KeyError, match="approx_percentile"):
-        make(PORT, ["approx_percentile(x, 0.5) as p50"])
 
 
 def test_right_join_rewrite():

@@ -28,6 +28,9 @@ import velox_tpu_torch.testing
 import velox_tpu_torch.utils.tz, velox_tpu_torch.utils.porter
 import velox_tpu_torch.functions.presto.tzfuncs
 import velox_tpu_torch.ops.int128, velox_tpu_torch.exec.hugeint
+import velox_tpu_torch.exec.sketch, velox_tpu_torch.functions.spark.scalar
+import velox_tpu_torch.utils.bloom, velox_tpu_torch.utils.spark_bloom
+import velox_tpu_torch.connectors.tpch.dbgen
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "velox_tpu" or m.startswith("velox_tpu.")
@@ -139,6 +142,38 @@ def test_sql_and_plan_time_fragments_raise_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         plans.build_query(22, tables)
     assert plans.build_query(22, tables, device="cpu") is not None
+
+
+def test_sketch_and_spark_entry_points_raise_without_cuda():
+    """The sketch rewrites, the bloom filter's build and probe and the Spark
+    functions run inside the executor and ``run_sql``: ``device=None`` is
+    CUDA there too, ``device="cpu"`` runs them on the host.  dbgen's tables
+    are host tables, as ``gen.py``'s are."""
+    from velox_tpu_torch.connectors.tpch import dbgen
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.sql import run_sql
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default device exists")
+    table, _ = _tiny_plan()
+    plans = [
+        PlanBuilder().table_scan(table).aggregation(["k"], [agg]).build()
+        for agg in ("approx_distinct(v) as d", "approx_percentile(v, 0.5) as m",
+                    "bloom_filter_agg(v) as bf")
+    ]
+    for plan in plans:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LocalExecutor(plan)
+        assert LocalExecutor(plan, device="cpu").run().num_rows == 2
+    text = "select pmod(v, 3) as b, max(xxhash64(v)) as x, min(rand(7)) as r from t group by pmod(v, 3)"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_sql(text, {"t": table})
+    assert run_sql(text, {"t": table}, device="cpu").num_rows == 3
+    region = dbgen.table("region", 0.01)
+    assert region.num_rows == 5
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        region.tile(0, 8)
 
 
 def test_explicit_cpu_runs():

@@ -1,7 +1,8 @@
 """The Presto scalar-function library of the port against the JAX package's:
 the cases of ``tests/test_expr.py``, ``test_functions_extended.py`` and
 ``test_function_tail.py`` that are Presto scalars (the array / map / lambda
-and Spark cases wait for their slices), each projected by both packages over
+cases are in their own files, the Spark ones in
+``test_torch_spark_functions.py``), each projected by both packages over
 the same seeded rows, in several tiles.
 
 Integers, decimals, dates, booleans and strings agree exactly, DOUBLE to
@@ -9,8 +10,8 @@ rtol 1e-9, with an absolute floor of ``ATOL`` = 1e-15 for results that are
 zero in exact arithmetic (a Wilson bound at 0 successes is a difference of
 two equal terms, and each framework rounds them its own way).  Where the port differs on purpose the test asserts both sides,
 named: subnormal results (the port keeps IEEE, XLA on the CPU flushes them
-to zero).  The registry test holds the port's registered names to the
-reference's Presto scalar and time-zone names."""
+to zero).  The registry test holds the port's registered names and
+overloads to the reference's, every one of them."""
 
 import hashlib
 import math
@@ -297,28 +298,16 @@ def test_string_literal_case_raises_in_both_packages():
         RefBuilder().table_scan(ref_t).project(text).build()
 
 
-# every name the JAX package's registry holds beyond its Presto scalar,
-# time-zone and array / map / lambda modules, with the ROADMAP Queue 1 item
-# that ports it: 6, the Spark package (functions/spark/)
+# every name of the JAX package's registry is registered in the port: the
+# Spark package (functions/spark/, ROADMAP Queue 1 item 6) and the sketch
+# rewrite's device functions (exec/sketch.py) came last; nothing is left
 LATER = {}
-LATER.update({name: 6 for name in (
-    "add", "add_months", "ascii", "bin", "chr", "conv", "cot", "crc32", "csc", "date_sub",
-    "datediff", "dayofmonth", "dayofweek", "dayofyear", "endswith", "equalnullsafe",
-    "equalto", "expm1", "get_json_object", "greaterthan", "greaterthanorequal", "hash",
-    "hash_with_seed", "hypot", "ifnull", "instr", "isnotnull", "isnull", "last_day",
-    "left", "lessthan", "lessthanorequal", "levenshtein", "log1p", "make_date",
-    "might_contain", "months_between", "nanvl", "nvl", "overlay", "pmod", "rand", "random",
-    "remainder", "rint", "rlike", "sec", "sha2", "shiftleft", "shiftright", "soundex",
-    "startswith", "substring_index", "subtract", "to_unix_timestamp", "translate",
-    "unaryminus", "unix_date", "unix_timestamp", "xxhash64", "xxhash64_with_seed",
-)})
 
-
-# registered into the JAX package's registry by its sketch rewrite
-# (``velox_tpu/exec/sketch.py _register_hll_functions``) the first time a
-# plan uses approx_distinct or the DDSketch approx_percentile; they come
-# with the sketches (ROADMAP Queue 1 item 6)
-SKETCH = {"hll_bucket64", "hll_rho64", "dd_bucket64"}
+# registered into each package's registry by its sketch rewrite
+# (``exec/sketch.py _register_hll_functions``) the first time a plan uses
+# approx_distinct or the DDSketch approx_percentile
+SKETCH_FNS = {"hll_bucket64", "hll_rho64", "dd_bucket64"}
+SKETCH = set()
 
 
 def _public(registry):
@@ -327,32 +316,36 @@ def _public(registry):
 
 
 def test_registered_names_match_reference():
-    """The port registers every name of the JAX package's registry but those
-    left to a later slice (``LATER``); those raise ``KeyError`` by name.  A
-    name that both the Spark package and the Presto scalars register
-    (``date_add``, ``from_unixtime``) is here with its Presto overloads; the
-    names of the array / map / lambda functions (``functions/presto/
-    complex.py``, ROADMAP Queue 1 item 5) are all registered, ``concat`` and
-    ``reverse`` with their ARRAY overloads beside the string ones."""
+    """The port registers every name of the JAX package's registry
+    (``LATER`` and ``SKETCH`` are empty), each with the same overloads: the
+    Spark package's names (``functions/spark/scalar.py``) with their
+    signatures, ``date_add`` and ``from_unixtime`` with their Presto and
+    Spark overloads side by side, the names of the array / map / lambda
+    functions (``functions/presto/complex.py``) all registered, ``concat``
+    and ``reverse`` with their ARRAY overloads beside the string ones."""
     from velox_tpu.exec.sketch import _register_hll_functions
+    from velox_tpu_torch.exec.sketch import _register_hll_functions as port_register
 
     _register_hll_functions()  # as after any earlier sketch plan in this process
-    assert SKETCH <= _public(REF_REGISTRY)
-    assert _public(PORT_REGISTRY) == _public(REF_REGISTRY) - set(LATER) - SKETCH
-    owned = {
+    port_register()
+    assert SKETCH_FNS <= _public(REF_REGISTRY) and SKETCH_FNS <= _public(PORT_REGISTRY)
+    assert not LATER and not SKETCH
+    assert _public(PORT_REGISTRY) == _public(REF_REGISTRY)
+    spark_names = {
         n for n, sigs in REF_REGISTRY._functions.items()
         if all(sig.impl.__module__.endswith("spark.scalar") for sig in sigs)
     }
-    assert owned == {n for n, i in LATER.items() if i == 6} == set(LATER)
+    assert len(spark_names) == 61
+    assert spark_names == {
+        n for n, sigs in PORT_REGISTRY._functions.items()
+        if all(sig.impl.__module__.endswith("spark.scalar") for sig in sigs)
+    }
     complex_names = {
         n for n, sigs in REF_REGISTRY._functions.items()
         if any(sig.impl.__module__.endswith("presto.complex") for sig in sigs)
     }
     assert len(complex_names) == 47 and complex_names <= _public(PORT_REGISTRY)
-    for name in complex_names:
+    for name in _public(REF_REGISTRY):
         ref_kinds = sorted(str(sig.arg_matchers) for sig in REF_REGISTRY._functions[name])
         port_kinds = sorted(str(sig.arg_matchers) for sig in PORT_REGISTRY._functions[name])
         assert port_kinds == ref_kinds, name
-    for name in (*LATER, *SKETCH):
-        with pytest.raises(KeyError, match=name):
-            PORT_REGISTRY.resolve(name, [])

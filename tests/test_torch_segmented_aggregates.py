@@ -182,10 +182,12 @@ def test_narrow_rebinding_accumulators(which):
 
 
 def test_unported_aggregate_raises_by_name():
-    # stddev is ported now (test_torch_aggregates_extended.py); the sketch
-    # aggregates come with a later slice
-    with pytest.raises(KeyError, match="approx_distinct"):
-        port_agg.bind_aggregate("approx_distinct", vtt.DOUBLE)
+    # every aggregate of the JAX package is ported now, the sketches included
+    # (test_torch_aggregates_extended.py); a name neither package knows
+    # raises by name
+    assert port_agg.bind_aggregate("approx_distinct", vtt.DOUBLE).name == "approx_distinct"
+    with pytest.raises(KeyError, match="no_such_aggregate"):
+        port_agg.bind_aggregate("no_such_aggregate", vtt.DOUBLE)
 
 
 def _key_batches():

@@ -6,11 +6,10 @@ and through a join, the gates, a SQL text, string functions chained over a
 construction and ORDER BY a constructed string — on the same rows, with the
 reference test's expected rows.
 
-``chr`` and ``bin`` are registered by the JAX package's Spark functions, which
-come with ROADMAP Queue 1 item 6: the cases that call them
-(``test_bin_chr``, the ``chr`` half of ``test_order_by_chr_and_bool``) wait
-for that item, and here the port raises ``KeyError`` by name while their
-render specs are held against the JAX package's directly.  The JAX
+``chr`` and ``bin`` are registered by the Spark functions of both packages:
+``test_bin_chr`` and ``test_order_by_bool`` (the reference's
+``test_order_by_chr_and_bool``) call them by name, and their render specs
+are also held against the JAX package's directly.  The JAX
 package's distributed case (``test_distributed_matches_local``) waits for
 the multi-device slice."""
 
@@ -81,15 +80,16 @@ class TestScalarRender:
         assert out["sc"] == ["-123.45", "7.00"]
 
     def test_bin_chr(self):
-        """``bin`` / ``chr`` come with ROADMAP Queue 1 item 6 (the Spark
-        functions register them); their render specs are ported already."""
+        """``bin`` / ``chr`` by name (the Spark package registers them) through
+        the string-construction rewrite, and their render specs."""
         from velox_tpu.exec.strcast import RenderSpec as RefSpec
         from velox_tpu.exec.strcast import _render_scalar as ref_render
         from velox_tpu_torch.exec.strcast import RenderSpec, _render_scalar
 
-        for fn in ("bin(i) as b", "chr(i % 64 + 60) as c"):
-            with pytest.raises(KeyError, match=fn.split("(")[0]):
-                _scan(PORT, ["i"], ["BIGINT"], i=np.array([5, -1, 65])).project([fn])
+        out = _both(lambda k: _scan(k, ["i"], ["BIGINT"], i=np.array([5, -1, 65]))
+                    .project(["bin(i) as b", "chr(i % 64 + 60) as c"]).build())
+        assert out["b"] == ["101", "1" * 64, "1000001"]
+        assert out["c"] == [chr(65), chr(59), chr(61)]
         values = np.array([5, -1, 65], np.int64)
         b = _render_scalar(RenderSpec("bin", PORT.t.BIGINT), values)
         assert b == ref_render(RefSpec("bin", REF.t.BIGINT), values) == ["101", "1" * 64, "1000001"]
@@ -299,7 +299,10 @@ class TestOrderByConstructedString:
         assert out["s"] == sorted((str(int(v)) for v in vals), reverse=True)[:3]
 
     def test_order_by_bool(self):
-        # the chr half of the reference case waits for ROADMAP Queue 1 item 6
+        out = _both(lambda k: _scan(k, ["c", "b"], ["BIGINT", "BOOLEAN"],
+                                    c=np.array([122, 97, 65]), b=np.array([True, False, True]))
+                    .project(["chr(c) as s", "cast(b as varchar) as t"]).orderby(["s"]).build())
+        assert out["s"] == ["A", "a", "z"] and out["t"] == ["true", "false", "true"]
         out = _both(lambda k: _scan(k, ["c", "b"], ["BIGINT", "BOOLEAN"],
                                     c=np.array([122, 97, 65]), b=np.array([True, False, True]))
                     .project(["c", "cast(b as varchar) as t"]).orderby(["t", "c"]).build())

@@ -11,7 +11,7 @@ Layering:
   dtypes         logical types -> fixed-width device representations
   vector         fixed-capacity columnar batches (flat/dict/const + validity + masks)
   expr           typed expression IR evaluated as eager torch ops
-  functions      Presto-semantic scalar function package
+  functions      Presto- and Spark-semantic scalar function packages
   plan           plan nodes + PlanBuilder (fully-specified physical plans, no SQL)
   exec           plan -> pipeline -> per-tile programs; aggregation executors
   ops            masked / grouped reductions and the CUDA kernels' wrappers
@@ -44,6 +44,7 @@ from .dtypes import (  # noqa: F401
 )
 from .vector import Batch, Column, Encoding, StringTable  # noqa: F401
 from .functions import presto as _presto_functions  # noqa: F401  (registers fns)
+from .functions import spark as _spark_functions  # noqa: E402,F401  (registers fns)
 
 
 def run_plan(plan, tile_rows=1 << 20, device=None):

@@ -23,6 +23,15 @@ class QueryConfig:
     # carry state, no per-tile host fetches).  False = host merge of the
     # per-tile partials (one fetch a tile), which handles any group count.
     device_agg_merge: bool = True
+    # approx_percentile sketch family (reference: functions/lib/KllSketch.h):
+    # "kll" = rank-error sketch (deterministic rank-compressed ECDF; error
+    # <= 2/kll_points of the rank, Presto's semantics); "ddsketch" = legacy
+    # value-error log buckets (0.5% relative value error).
+    percentile_sketch: str = "kll"
+    # Rank-space compression points per group for the kll sketch; rank error
+    # <= 2/kll_points.  An explicit accuracy argument overrides this
+    # (m = ceil(2 / accuracy)).
+    kll_points: int = 256
 
     def copy(self, **overrides) -> "QueryConfig":
         return dataclasses.replace(self, **overrides)

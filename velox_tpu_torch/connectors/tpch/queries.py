@@ -57,6 +57,14 @@ Q1_COLUMNS = [
 ]
 
 
+def _has_value(table, name: str, values) -> np.ndarray:
+    """Rows whose string column ``name`` is one of ``values``, compared by
+    dictionary code (no decode of the whole column)."""
+    strings = table.string_tables[name]
+    codes = [strings.lookup(v) for v in values]
+    return np.isin(table.columns[name], [c for c in codes if c is not None])
+
+
 def q1_oracle(lineitem) -> pd.DataFrame:
     cutoff = _days("1998-12-01") - 90
     keep = lineitem.columns["l_shipdate"] <= cutoff
@@ -399,13 +407,9 @@ Q19_COLUMNS = {
 
 def q19_oracle(part, lineitem) -> pd.DataFrame:
     c = lineitem.columns
-    modes = lineitem.string_tables["l_shipmode"].decode(c["l_shipmode"]).astype(str)
-    instr = (
-        lineitem.string_tables["l_shipinstruct"]
-        .decode(c["l_shipinstruct"])
-        .astype(str)
+    keep = _has_value(lineitem, "l_shipmode", ["AIR", "AIR REG"]) & _has_value(
+        lineitem, "l_shipinstruct", ["DELIVER IN PERSON"]
     )
-    keep = np.isin(modes, ["AIR", "AIR REG"]) & (instr == "DELIVER IN PERSON")
     li = pd.DataFrame(
         {
             "l_partkey": c["l_partkey"][keep],
@@ -1013,15 +1017,15 @@ Q12_COLUMNS = {
 def q12_oracle(orders, lineitem) -> pd.DataFrame:
     lo, hi = _days("1994-01-01"), _days("1995-01-01")
     c = lineitem.columns
-    modes = lineitem.string_tables["l_shipmode"].decode(c["l_shipmode"])
     keep = (
-        np.isin(modes.astype(str), ["MAIL", "SHIP"])
+        _has_value(lineitem, "l_shipmode", ["MAIL", "SHIP"])
         & (c["l_commitdate"] < c["l_receiptdate"])
         & (c["l_shipdate"] < c["l_commitdate"])
         & (c["l_receiptdate"] >= lo)
         & (c["l_receiptdate"] < hi)
     )
-    li = pd.DataFrame({"l_orderkey": c["l_orderkey"][keep], "l_shipmode": modes[keep]})
+    modes = lineitem.string_tables["l_shipmode"].decode(c["l_shipmode"][keep])
+    li = pd.DataFrame({"l_orderkey": c["l_orderkey"][keep], "l_shipmode": modes})
     odf = pd.DataFrame(
         {
             "o_orderkey": orders.columns["o_orderkey"],

@@ -10,10 +10,13 @@ arrays).  Grouped updates are reductions over a static ``num_groups``;
 ungrouped aggregation is the G=1 case.  Each accumulator declares its combine
 op (sum/min/max), from which raw-input updates and partial merges both derive.
 
-Every aggregate of the JAX package's ``bind_aggregate`` is here but the
-sketches (``approx_distinct``, ``bloom_filter_agg``, ``approx_percentile``),
-which come with a later slice and raise ``KeyError`` by name.  The collect
-aggregates (``array_agg`` and its family) bind to ``exec/collect_agg.py``.
+Every aggregate of the JAX package's ``bind_aggregate`` is here, with the
+Spark package's aliases (``first`` / ``last`` -> ``arbitrary``,
+``collect_list`` -> ``array_agg``, ``collect_set`` -> ``set_agg``).  The
+sketches ``approx_distinct`` and ``bloom_filter_agg`` bind only to give the
+plan node its result type: ``exec/sketch.py`` lowers them before a plan runs,
+and their update raises.  The collect aggregates (``array_agg`` and its
+family, ``approx_percentile``) bind to ``exec/collect_agg.py``.
 Each works in the direct modes (``update``), in sort mode (``run_reduce``
 over a tile's sorted runs, ``merge_runs`` in the carry merge) and in the host
 merge (``host_merge_sorted``).  min_by / max_by keep (ordering, payload)
@@ -45,6 +48,7 @@ from ..ops.segmented import (
     masked_reduce_pair,
     pair_wins,
 )
+from ..ops.u64 import GOLDEN_GAMMA, signed64, splitmix64_mix
 
 _COMBINE = {
     "sum": torch.add,
@@ -403,27 +407,12 @@ def _to_float(values: torch.Tensor, t: DataType) -> torch.Tensor:
 
 # ---- hash mixing for checksum ------------------------------------------------
 
-_U64 = 1 << 64
-
-
-def _signed(c: int) -> int:
-    """A 64-bit constant as the int64 torch computes with."""
-    return c - _U64 if c >= 1 << 63 else c
-
-
-def _shr_logical(x: torch.Tensor, k: int) -> torch.Tensor:
-    """uint64 ``x >> k`` on int64 lanes (torch has no uint64 arithmetic)."""
-    return (x >> k) & ((1 << (64 - k)) - 1)
-
 
 def _splitmix64(v: torch.Tensor) -> torch.Tensor:
     """splitmix64 finalizer over int64 lanes (wrapping arithmetic): the same
     bits as the JAX package's uint64 version, since two's-complement adds and
     multiplies wrap alike."""
-    x = v.to(torch.int64) + _signed(0x9E3779B97F4A7C15)
-    x = (x ^ _shr_logical(x, 30)) * _signed(0xBF58476D1CE4E5B9)
-    x = (x ^ _shr_logical(x, 27)) * _signed(0x94D049BB133111EB)
-    return x ^ _shr_logical(x, 31)
+    return splitmix64_mix(v.to(torch.int64) + signed64(GOLDEN_GAMMA))
 
 
 def narrow_int_sum(result_type: DataType, input_index=None) -> BoundAggregate:
@@ -517,6 +506,15 @@ def bind_aggregate(
 ) -> BoundAggregate:
     """Bind an aggregate by name (reference: exec::Aggregate::create)."""
     name = name.lower()
+    # Spark-package aliases (reference: velox/functions/sparksql/aggregates):
+    # first/last reduce to arbitrary (deterministic here), collect_* to the
+    # Presto collect aggregates
+    name = {
+        "first": "arbitrary",
+        "last": "arbitrary",
+        "collect_list": "array_agg",
+        "collect_set": "set_agg",
+    }.get(name, name)
     if input_types is None:
         types: Tuple[DataType, ...] = ()
     elif isinstance(input_types, DataType):
@@ -534,6 +532,28 @@ def bind_aggregate(
         return BoundAggregate(
             "count", BIGINT, (torch.int64,), ("sum",),
             lambda values, mask: (_ones_like(mask),),
+            lambda accs: (accs[0], None),
+            input_index,
+            arg_roles=("plain",) * len(types),
+        )
+
+    if name in ("approx_distinct", "bloom_filter_agg"):
+        # lowered by the sketch rewrite before execution (exec/sketch.py;
+        # reference: common/hyperloglog/DenseHll.h, sparksql
+        # BloomFilterAggAggregate.cpp): this binding only types the node
+        from ..dtypes import VARBINARY
+
+        def _unlowered(values, mask):
+            raise NotImplementedError(
+                f"{name} must be lowered by "
+                "exec.sketch.rewrite_sketch_aggregates (LocalExecutor applies "
+                "it; bloom_filter_agg's size arguments must be literals)"
+            )
+
+        return BoundAggregate(
+            name, BIGINT if name == "approx_distinct" else VARBINARY,
+            (torch.int64,), ("max",) if name == "approx_distinct" else ("bor",),
+            _unlowered,
             lambda accs: (accs[0], None),
             input_index,
             arg_roles=("plain",) * len(types),
@@ -714,13 +734,13 @@ _VARIANCE = (
     "variance", "var_samp", "var_pop", "stddev", "stddev_samp", "stddev_pop",
 )
 
-# The JAX package's names (velox_tpu/exec/aggregates.py AGGREGATE_NAMES) but
-# approx_distinct and bloom_filter_agg (the sketch slice) and the collect
-# aggregates (the complex-types slice); binding one of those raises KeyError.
+# The JAX package's names (velox_tpu/exec/aggregates.py AGGREGATE_NAMES);
+# the collect aggregates are exec/collect_agg.py COLLECT_AGG_NAMES.
 AGGREGATE_NAMES = (
     "count", "count_if", "sum", "min", "max", "avg", "arbitrary",
     "bool_and", "bool_or", "every", "min_by", "max_by",
 ) + _VARIANCE + (
     "geometric_mean", "checksum", "covar_pop", "covar_samp", "corr",
     "skewness", "kurtosis", "bitwise_and_agg", "bitwise_or_agg",
+    "approx_distinct", "bloom_filter_agg",
 )

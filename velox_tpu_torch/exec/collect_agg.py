@@ -1,5 +1,6 @@
 """Collect aggregates: array_agg / set_agg / map_agg / histogram / map_union,
-entropy, multimap_agg and approx_most_frequent.
+entropy, multimap_agg, approx_most_frequent, approx_percentile and the
+sketch rewrites' per-group finishers.
 
 Counterpart of the JAX package's ``exec/collect_agg.py``.  Reference:
 velox/functions/prestosql/aggregates/{ArrayAgg,SetAgg,MapAgg,Histogram,
@@ -12,10 +13,12 @@ package's ``np.lexsort`` calls; the executor runs them on its device
 (``lexsort``), with the same order.  The result size equals
 the input size, so materializing rows costs no more than the answer itself.
 
-The JAX package's sketch-backed names (``approx_percentile``, which its
-sketch rewrite lowers, and the rewrite's internal ``__dd_quantile``,
-``__kll_quantile``, ``__bloom_assemble``) come with the sketch slice and
-raise ``KeyError`` by name here.
+``approx_percentile`` is lowered by the sketch rewrite (``exec/sketch.py``)
+whenever its arguments allow; what reaches this module is exact.  The
+rewrite's internal ``__kll_quantile``, ``__dd_quantile`` and
+``__bloom_assemble`` finish a group from its few bounded-state rows: a
+quantile from the rank-compressed ECDF or the log-bucket histogram, and the
+Spark wire format of a bloom filter from its OR-ed words.
 """
 
 from __future__ import annotations
@@ -35,9 +38,13 @@ COLLECT_AGG_NAMES = (
     "map_agg",
     "histogram",
     "map_union",
+    "approx_percentile",
     "approx_most_frequent",
     "entropy",
     "multimap_agg",
+    "__dd_quantile",
+    "__kll_quantile",
+    "__bloom_assemble",
 )
 
 
@@ -88,6 +95,15 @@ def bind_collect(name: str, types: Tuple[DataType, ...]) -> CollectAggregate:
         return CollectAggregate(
             name, map_t(k, array_t(v)), types, ("value", "value")
         )
+    if name == "approx_percentile":
+        # (x, percentage) or (x, weight, percentage), exact: the sketch
+        # rewrite lowers every form it can bound (string and decimal x stay)
+        if len(types) == 3:
+            return CollectAggregate(
+                name, types[0], types, ("value", "value", "plain")
+            )
+        assert len(types) == 2, "approx_percentile(x, [w,] percentage)"
+        return CollectAggregate(name, types[0], types, ("value", "plain"))
     if name == "approx_most_frequent":
         # (buckets, value, capacity) -> map(value, count); exact top-k
         # (reference: ApproxMostFrequentStreamSummary.h space-saving sketch)
@@ -95,7 +111,45 @@ def bind_collect(name: str, types: Tuple[DataType, ...]) -> CollectAggregate:
         return CollectAggregate(
             name, map_t(types[1], BIGINT), types, ("plain", "value", "plain")
         )
+    if name == "__dd_quantile":
+        # (dd_bucket, count, percentage) -> quantile from the bounded
+        # log-bucket histogram (exec/sketch.py DDSketch rewrite)
+        from ..dtypes import DOUBLE
+
+        assert len(types) == 3
+        return CollectAggregate(
+            name, DOUBLE, types, ("plain", "plain", "plain")
+        )
+    if name == "__kll_quantile":
+        # (x, cum_rank, total, percentage) -> quantile from the rank-
+        # compressed per-group ECDF (exec/sketch.py kll rewrite; rank error
+        # <= 2/kll_points, velox/functions/lib/KllSketch.h's contract shape)
+        from ..dtypes import DOUBLE
+
+        assert len(types) == 4
+        return CollectAggregate(
+            name, DOUBLE, types, ("plain", "plain", "plain", "plain")
+        )
+    if name == "__bloom_assemble":
+        # (word_idx, or_bits, num_words) -> Spark-format serialized bloom
+        # filter (exec/sketch.py bloom_filter_agg rewrite; reference:
+        # sparksql/aggregates/BloomFilterAggAggregate.cpp)
+        from ..dtypes import VARBINARY
+
+        assert len(types) == 3
+        return CollectAggregate(
+            name, VARBINARY, types, ("plain", "plain", "plain")
+        )
     raise KeyError(name)
+
+
+def _percentage(agg: CollectAggregate, args, index: int, n: int) -> float:
+    """The (constant) percentage argument of a group-sorted run, as a float."""
+    if not n:
+        return 0.5
+    pt = agg.arg_types[index]
+    p_raw = float(np.asarray(args[index])[0])
+    return p_raw / 10.0**pt.scale if pt.kind == TypeKind.DECIMAL else p_raw
 
 
 def _runs(arrs: Sequence[np.ndarray], n: int) -> np.ndarray:
@@ -277,6 +331,141 @@ def compute_collect(
             (tables[0], None),
         )
         return seg, None
+
+    if agg.name == "approx_percentile":
+        v, val = args[0], validities[0]
+        weighted = len(agg.arg_types) == 3
+        p = _percentage(agg, args, 2 if weighted else 1, n)
+        live = np.ones(n, dtype=bool) if val is None else val
+        order = lexsort((v, gids))
+        vs, gs, lv = v[order], gids[order], live[order]
+        vs2, gs2 = vs[lv], gs[lv]
+        counts = np.bincount(gs2, minlength=num_groups)
+        firsts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        if weighted:
+            # weight w repeats the value w times (reference:
+            # aggregates/ApproxPercentileAggregate.cpp weighted path): pick
+            # the first value whose within-group cumulative weight reaches
+            # ceil(p * total_weight).  cumw is globally nondecreasing, so a
+            # global searchsorted with per-group targets + a clip to the
+            # group's range finds it without per-group loops.
+            w = np.asarray(args[1]).astype(np.int64)[order][lv]
+            w = np.maximum(w, 0)
+            ends = firsts + counts
+            if len(w):
+                cumw = np.cumsum(w)
+                base = np.where(firsts > 0, cumw[np.maximum(firsts - 1, 0)], 0)
+                totals = np.where(
+                    counts > 0, cumw[np.maximum(ends - 1, 0)] - base, 0
+                )
+                target = base + np.maximum(np.ceil(p * totals), 1)
+                idx = np.searchsorted(cumw, target, side="left")
+                idx = np.clip(idx, firsts, np.maximum(ends - 1, firsts))
+            else:
+                idx = np.zeros(num_groups, np.int64)
+        else:
+            idx = firsts + np.minimum(
+                np.maximum(counts - 1, 0),
+                np.floor(p * counts).astype(np.int64),
+            )
+        if len(vs2):
+            out = vs2[np.clip(idx, 0, len(vs2) - 1)]
+        else:
+            out = np.zeros(num_groups, v.dtype)
+        return out, counts > 0
+
+    if agg.name == "__bloom_assemble":
+        # per-group: scatter (word_idx -> or_bits) into a zeroed word array
+        # and emit the Spark wire format (utils/spark_bloom.serialize).
+        # Rows whose word is NULL carry an all-NULL x group (the rewrite is
+        # null-propagating, not filtering); a group with NO live rows
+        # yields a NULL filter, matching the reference
+        # (BloomFilterAggAggregateTest emptyInput/nullBloomFilter).
+        from ..utils.spark_bloom import serialize
+
+        w = np.asarray(args[0]).astype(np.int64)
+        bits = np.asarray(args[1]).astype(np.int64).view(np.uint64)
+        live = (
+            np.asarray(validities[0], dtype=bool)
+            if validities[0] is not None
+            else np.ones(n, dtype=bool)
+        )
+        if validities[1] is not None:
+            live = live & np.asarray(validities[1], dtype=bool)
+        nwords = int(np.asarray(args[2])[0]) if n else 4
+        out = np.empty(num_groups, dtype=object)
+        valid = np.zeros(num_groups, dtype=bool)
+        for g in range(num_groups):
+            s = starts[g]
+            e = starts[g + 1] if g + 1 < num_groups else n
+            lv = live[s:e]
+            if not lv.any():
+                out[g] = None
+                continue
+            words = np.zeros(nwords, dtype=np.uint64)
+            words[w[s:e][lv]] = bits[s:e][lv]
+            out[g] = serialize(words)
+            valid[g] = True
+        return out, valid
+
+    if agg.name == "__dd_quantile":
+        from .sketch import dd_bucket_value
+
+        b = np.asarray(args[0]).astype(np.int64)
+        c = np.asarray(args[1]).astype(np.int64)
+        p = _percentage(agg, args, 2, n)
+        order = lexsort((b, gids))
+        bs, gs, cs = b[order], gids[order], c[order]
+        totals = np.zeros(num_groups, np.int64)
+        np.add.at(totals, gs, cs)
+        # rank convention matches the exact path: element index
+        # floor(p * count), clipped into range
+        rank = np.minimum(
+            np.maximum(totals - 1, 0), np.floor(p * totals).astype(np.int64)
+        )
+        cum = np.cumsum(cs)
+        first = np.ones(len(gs), dtype=bool)
+        first[1:] = gs[1:] != gs[:-1]
+        fidx = np.flatnonzero(first)
+        base = np.zeros(len(gs), np.int64)
+        if len(fidx):
+            base_vals = np.concatenate([[0], cum[fidx[1:] - 1]])
+            base = np.repeat(base_vals, np.diff(np.append(fidx, len(gs))))
+        cum_in = cum - base
+        hit = cum_in > rank[gs]
+        pos = np.arange(len(gs))
+        # first qualifying bucket row per group
+        sel = np.full(num_groups, len(gs), np.int64)
+        np.minimum.at(sel, gs[hit], pos[hit])
+        chosen = np.clip(sel, 0, max(len(gs) - 1, 0))
+        vals = dd_bucket_value(bs[chosen]) if len(bs) else np.zeros(num_groups)
+        out = np.where(totals > 0, vals, 0.0)
+        return out, totals > 0
+
+    if agg.name == "__kll_quantile":
+        x = np.asarray(args[0]).astype(np.float64)
+        cum = np.asarray(args[1]).astype(np.int64)
+        tot = np.asarray(args[2]).astype(np.int64)
+        p = _percentage(agg, args, 3, n)
+        # rank convention matches the exact path: element index
+        # floor(p * count), clipped into range; pick the first compressed
+        # ECDF point whose cumulative rank covers it
+        order = lexsort((cum, gids))
+        xs, gs, cs = x[order], gids[order], cum[order]
+        totals = np.zeros(num_groups, np.int64)
+        if len(gs):
+            np.maximum.at(totals, gs, tot[order])
+        rank = np.minimum(
+            np.maximum(totals - 1, 0), np.floor(p * totals).astype(np.int64)
+        )
+        hit = cs > rank[gs]
+        pos = np.arange(len(gs))
+        sel = np.full(num_groups, len(gs), np.int64)
+        if len(gs):
+            np.minimum.at(sel, gs[hit], pos[hit])
+        chosen = np.clip(sel, 0, max(len(gs) - 1, 0))
+        vals = xs[chosen] if len(xs) else np.zeros(num_groups)
+        return np.where(totals > 0, vals, 0.0), totals > 0
 
     if agg.name == "approx_most_frequent":
         buckets = int(np.asarray(args[0])[0]) if n else 0

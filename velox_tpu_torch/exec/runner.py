@@ -93,6 +93,7 @@ from .collect_agg import CollectAggregate, compute_collect
 from .expand import apply_assign_unique_id, apply_groupid, apply_unnest
 from .grouping import MAX_ARRAY_GROUPS, ArrayGrouping, KeyInfo, SortGrouping, key_info
 from .hugeint import merge_result, rewrite_long_decimals
+from .sketch import rewrite_sketch_aggregates
 from .strcast import render_result, rewrite_string_construction
 from .window import WindowNode
 
@@ -1423,6 +1424,9 @@ class LocalExecutor:
         # pass over an already rewritten plan finds nothing and keeps the specs
         root, specs = rewrite_string_construction(root)
         self._strcast_specs = specs or getattr(self, "_strcast_specs", None)
+        # approx_distinct / approx_percentile / bloom_filter_agg become
+        # bounded-state groupings, windows and per-group finishers
+        root = rewrite_sketch_aggregates(root, self.config)
         root = rewrite_filtered_existence_joins(root)
         # long decimals become (hi, lo) limb columns and __i128_* calls; the
         # result is re-packed into (n, 2) columns at the end of run()

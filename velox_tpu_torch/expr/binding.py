@@ -14,9 +14,10 @@ are rewritten against the scan's string tables:
 
 This is valid because scan dictionaries are immutable for the life of a query.
 
-The Spark bloom-filter probe (``might_contain``) comes with the Spark slice:
-such a call stays an unbound ``Call`` and raises by name when it is
-evaluated.
+``might_contain(X'...', x)`` with a literal Spark-serialized bloom filter
+becomes a probe function specialised on the filter's words
+(``utils/spark_bloom.py register_bloom_probe``); a NULL filter folds to a
+NULL constant.
 """
 
 from __future__ import annotations
@@ -146,6 +147,26 @@ def _rewrite(expr: Expr, tables, context_table: Optional[StringTable]) -> Expr:
             inner = Call(expr.dtype, "from_unixtime", rest)
             return Call(expr.dtype, register_zone_fn("at", zone), (inner,))
         return Call(expr.dtype, register_zone_fn(_TZ_FNS[expr.name], zone), rest)
+    if (
+        isinstance(expr, Call)
+        and expr.name == "might_contain"
+        and expr.args
+        and isinstance(_uncast_const(expr.args[0]), Constant)
+    ):
+        # literal Spark-serialized bloom filter: specialise a device probe
+        # closing over the deserialized words (utils/spark_bloom.py);
+        # reference: velox/functions/sparksql/MightContain.h
+        from ..utils.spark_bloom import register_bloom_probe
+
+        data = _uncast_const(expr.args[0]).value
+        if data is None:
+            # a NULL filter argument gets default-null semantics (reference:
+            # MightContainTest.nullBloomFilter expects NULL rows); only a
+            # non-null but EMPTY filter probes as constant false
+            # (MightContain.h isSet()?:false)
+            return Constant(BOOLEAN, None)
+        fn = register_bloom_probe(bytes(data))
+        return Call(expr.dtype, fn, (_rewrite(expr.args[1], tables, context_table),))
     if isinstance(expr, Call) and expr.name == "array_join":
         # the separator / null-replacement literals must SURVIVE as strings:
         # the string-construction plan rewrite (not ported yet) renders the

@@ -386,7 +386,14 @@ def cast_values(
 
     if fk == TypeKind.DECIMAL:
         if to_t.is_floating:
-            return values.to(out_dtype) / _scale_factor(from_t.scale), None
+            # the divisor is a tensor on the values' device: torch on CUDA
+            # multiplies by the reciprocal of a Python-number divisor, which
+            # misses the correctly rounded quotient in the last bit (as XLA
+            # on the CPU does); a sketch hashing the DOUBLE's bits would see it
+            scale = torch.tensor(
+                float(_scale_factor(from_t.scale)), dtype=out_dtype, device=values.device
+            )
+            return values.to(out_dtype) / scale, None
         if to_t.is_integer:
             return _decimal_rescale_down(values, from_t.scale).to(out_dtype), None
         if tk == TypeKind.BOOLEAN:

@@ -1,1 +1,1 @@
-"""Function packages (Presto-semantic scalars for now)."""
+"""Function packages: Presto-semantic (core) and Spark-semantic scalars."""

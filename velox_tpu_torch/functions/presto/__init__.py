@@ -2,8 +2,7 @@
 
 Importing this module registers the scalar, time-zone and array / map /
 lambda functions into the default registry (reference:
-velox/functions/prestosql/registration/), in the JAX package's order.  The
-Spark package comes with a later slice.
+velox/functions/prestosql/registration/), in the JAX package's order.
 """
 
 from . import scalar  # noqa: F401

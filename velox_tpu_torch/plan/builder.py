@@ -190,8 +190,10 @@ class PlanBuilder:
         reference PlanBuilder does the same); distinct aggregates rewrite into
         a dedupe aggregation feeding a count (the physical plan the
         reference's planner also emits).  approx_most_frequent and reduce_agg
-        lower onto windows and collect aggregates, as in the JAX package;
-        approx_distinct lowers onto a sketch and is not ported yet."""
+        lower onto windows and collect aggregates, as in the JAX package.  A
+        lone approx_distinct stays a call for the executor's sketch rewrite
+        (exec/sketch.py); beside other aggregates it becomes an exact
+        distinct count, as in the JAX package."""
         step = AggregationStep(step)
         parsed = []  # (fn, [arg texts], name, is_distinct)
         for i, item in enumerate(aggregates):
@@ -205,13 +207,16 @@ class PlanBuilder:
                 raise ValueError(f"cannot parse aggregate {item!r}")
             fn = call_m.group("fn").lower()
             argtext = call_m.group("arg").strip()
-            if fn == "approx_distinct":
-                raise NotImplementedError(
-                    f"aggregate {item!r}: sketch aggregates are not ported "
-                    "yet; they come with the sketch slice"
-                )
             distinct = False
-            if argtext.lower().startswith("distinct "):
+            if fn == "approx_distinct":
+                argtext = _split_call_args(argtext)[0]  # ignore max-error arg
+                if len(aggregates) != 1:
+                    # a lone approx_distinct stays a real call: the executor
+                    # lowers it to the bounded-state HLL sketch
+                    # (exec/sketch.py); in a mixed node it becomes an exact
+                    # distinct count, as in the JAX package
+                    distinct, fn = True, "count"
+            elif argtext.lower().startswith("distinct "):
                 distinct = True
                 argtext = argtext[len("distinct "):].strip()
             if fn == "count" and argtext in ("*", "") and not distinct:
