@@ -113,7 +113,23 @@ data is the same in every run.  The script
    bit) and holds Q1, Q6 and Q3 to the TPC-H specification's published
    answers to the cent and Q13 to its pinned rows (``dbgen_golden``; Q1
    takes the piece path and launches ``grouped_piece_sums``);
-14. prints a ``summary`` line (every query's time in one place), the
+14. runs the files / host-formats slice (``files_io``: one line each, I1-I7)
+   at SF ``sf`` on the tables the script generated: I1 writes ``lineitem``'s
+   Q1 columns as a Hive dataset partitioned by ship year through a plan's
+   TableWrite, and times the partition split alone; I2 reads it back through ``HiveDataSource`` and the data cache
+   (cold, then warm) and runs Q1 over it (the piece path: one
+   ``grouped_piece_sums`` launch a tile, the counts set to 0 just before the
+   run and read just after); I3 runs Q6 over the 1994 partition alone; I4
+   writes ``orders`` sorted by date as one parquet file and loads 1995 with
+   row-group pruning; I5 runs Q6 over an Arrow stream and sends Q1's result
+   through the Arrow PyCapsule protocol; I6 sends ``orders`` through the page
+   serde, its head through UnsafeRow / CompactRow and one device tile through
+   the vector saver; I7 evaluates the fuzzer's expressions over 2^24-row
+   SEQUENCE / BIAS columns on the device beside their flat copies, and holds
+   each decode to ``repeat_interleave`` / ``bias + deltas``.  Each is
+   held against the generated tables or a numpy oracle; the datasets are
+   written under ``build/files_io`` and removed at the end;
+15. prints a ``summary`` line (every query's time in one place), the
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line (``at_s``: seconds since the start); any
@@ -2064,6 +2080,453 @@ def run_dbgen_golden(sf: float, tile_rows: int, device=None):
     return fields
 
 
+# ---------------------------------------------------------------------------
+# The files / host-formats slice (``files_io``): a Hive dataset written and
+# read back at ``--sf`` (I1-I3), parquet row-group pruning (I4), Arrow streams
+# (I5), the page and row serde and the vector saver (I6) and SEQUENCE / BIAS
+# columns from the fuzzer (I7).  Each line's ``correct`` is held against the
+# generated tables or a numpy oracle over them.
+
+Q6_FILTER = (
+    "l_shipdate >= date '1994-01-01' "
+    "and l_shipdate < date '1994-01-01' + interval '365' day "
+    "and l_discount between 0.05 and 0.07 and l_quantity < 24"
+)
+DAY_1995 = 9131  # 1995-01-01 in days since 1970-01-01
+FUZZ_EXPRS = [
+    # tests/test_fuzz.py:19-30
+    "c0 + c1", "c0 * 2 - c1", "c0 < c1", "c0 = c1 or c0 > 100", "if(c0 < c1, c0, c1)",
+    "coalesce(c0, c1)", "try(c0 / c1)", "c0 is null",
+    "case when c0 < 0 then 0 - c0 else c0 end", "abs(c0) + abs(c1)",
+]
+FUZZ_SEED = 20260  # the first of the seeds I7 draws its batches from
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, device):
+    """(result, seconds) of fn(), the device drained before and after."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _years(days):
+    import numpy as np
+
+    return np.asarray(days).astype("M8[D]").astype("M8[Y]").astype(np.int64) + 1970
+
+
+def q6_unscaled(lineitem) -> int:
+    """TPC-H Q6's revenue as an unscaled DECIMAL(18, 4) integer, in numpy."""
+    import numpy as np
+
+    c = lineitem.columns
+    keep = ((c["l_shipdate"] >= 8766) & (c["l_shipdate"] < DAY_1995) & (c["l_discount"] >= 5)
+            & (c["l_discount"] <= 7) & (c["l_quantity"] < 2400))
+    return int(np.sum(c["l_extendedprice"][keep].astype(np.int64)
+                      * c["l_discount"][keep].astype(np.int64)))
+
+
+def tables_equal(got, want) -> bool:
+    """Same names, types, columns (strings by text), validity."""
+    import numpy as np
+
+    if list(got.schema.names) != list(want.schema.names) or \
+            [str(t) for t in got.schema.types] != [str(t) for t in want.schema.types]:
+        return False
+    for name, t in zip(want.schema.names, want.schema.types):
+        g, w = np.asarray(got.columns[name]), np.asarray(want.columns[name])
+        if t.is_string:
+            g, w = got.string_tables[name].decode(g), want.string_tables[name].decode(w)
+        gv, wv = got.validities.get(name), want.validities.get(name)
+        if g.shape != w.shape or not np.array_equal(g, w):
+            return False
+        if (gv is None) != (wv is None) or (gv is not None and not np.array_equal(gv, wv)):
+            return False
+    return True
+
+
+def files_io_write(cache, tile_rows: int, device, root: str):
+    """I1: a Hive INSERT of ``lineitem``'s Q1 columns partitioned by ship
+    year, through the plan's TableWrite."""
+    import os
+
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    import velox_tpu_torch as vtt
+    from velox_tpu_torch.connectors.hive import _partition_rows
+    from velox_tpu_torch.connectors.tpch.queries import Q1_COLUMNS
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.io.table import Table
+    from velox_tpu_torch.plan import PlanBuilder
+
+    lineitem = cache.table("lineitem").select(Q1_COLUMNS)
+    plan = (
+        PlanBuilder().table_scan(lineitem)
+        .project([*Q1_COLUMNS, "year(l_shipdate) as l_shipyear"])
+        .table_write(root, partition_by=["l_shipyear"]).build()
+    )
+    result, write_s = _timed(
+        lambda: LocalExecutor(plan, tile_rows=tile_rows, device=device).run(), device)
+    shipyear = _years(lineitem.columns["l_shipdate"])
+    years, counts = np.unique(shipyear, return_counts=True)
+    # the partition split alone, over the same key column on the host
+    keys = Table(vtt.RowType(["l_shipyear"], [vtt.BIGINT]), {"l_shipyear": shipyear})
+    t0 = time.perf_counter()
+    split = _partition_rows(keys, ["l_shipyear"])
+    split_s = time.perf_counter() - t0
+    dirs = sorted(os.listdir(root))
+    files = {}
+    for d in dirs:
+        [name] = os.listdir(os.path.join(root, d))
+        files[d] = pq.ParquetFile(os.path.join(root, d, name)).metadata.num_rows
+    want = {f"l_shipyear={y}": int(c) for y, c in zip(years, counts)}
+    split_ok = [v for v, _ in split] == [(str(y),) for y in years] and all(
+        np.array_equal(rows, np.flatnonzero(shipyear == y)) for (_, rows), y in zip(split, years))
+    correct = (int(result.columns["rows"][0]) == lineitem.num_rows and files == want
+               and dirs == [f"l_shipyear={y}" for y in range(1992, 1999)] and split_ok)
+    disk = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(root) for f in fs)
+    return dict(line="I1", path="vectorized partition split (connectors/hive _partition_rows)",
+                rows=lineitem.num_rows, files=len(files), rows_per_file=files,
+                bytes_on_disk=disk, write_s=write_s, split_s=split_s, correct=correct)
+
+
+def _hive_read(root: str, columns, partition_filter=None):
+    from velox_tpu_torch.connectors.hive import HiveDataSource, _discover
+
+    src = HiveDataSource(columns=columns, partition_filter=partition_filter)
+    splits = _discover(root)
+    for split in splits:
+        src.add_split(split)
+    return src.to_table(), len(src.splits), len(splits)
+
+
+def files_io_q1(root: str, tile_rows: int, runs: int, device, want, wrappers):
+    """I2: Q1 over the dataset, read cold and then warm through the data
+    cache; the first run on the card launches grouped_piece_sums once a tile
+    (the counts set to 0 just before it and read just after)."""
+    import statistics
+
+    from velox_tpu_torch.connectors.tpch.plans import build_q1
+    from velox_tpu_torch.connectors.tpch.queries import Q1_COLUMNS
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.io.cache import DEFAULT_CACHE
+
+    DEFAULT_CACHE.clear()
+    reads = {}
+    for kind in ("cold", "warm"):
+        before = (DEFAULT_CACHE.hits, DEFAULT_CACHE.misses, DEFAULT_CACHE.loads)
+        (table, read, found), seconds = _timed(lambda: _hive_read(root, Q1_COLUMNS), "cpu")
+        reads[kind] = dict(read_s=seconds, splits_read=read, splits=found,
+                           hits=DEFAULT_CACHE.hits - before[0],
+                           misses=DEFAULT_CACHE.misses - before[1],
+                           files_decoded=DEFAULT_CACHE.loads - before[2])
+    ex = LocalExecutor(build_q1(table), tile_rows=tile_rows, device=device)
+    tiles, upload_s = _timed(ex.device_tiles, device)
+    for w in wrappers.values():
+        w.launches = 0
+    result = ex.run(prefetched_tiles=tiles)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    _, want = check_frame(1, result, None, want=want)
+    walls = []
+    for _ in range(runs):
+        walls.append(_timed(lambda: ex.run(prefetched_tiles=tiles), device)[1] * 1e3)
+    cold, warm = reads["cold"], reads["warm"]
+    # a cold read decodes every file once (the splits' prefetches, which the
+    # reads join in flight); a warm read decodes none
+    cache_ok = (cold["files_decoded"] == cold["splits"] and cold["hits"] + cold["misses"]
+                == cold["splits"] and warm["hits"] == warm["splits"] and warm["misses"] == 0
+                and warm["files_decoded"] == 0)
+    on_card = str(device).startswith("cuda")
+    k2_ok = launches["grouped_piece_sums"] == len(tiles) if on_card else True
+    assert ex.use_piece and cache_ok and k2_ok, (ex.use_piece, reads, launches, len(tiles))
+    fields = dict(line="I2", path="Q1 over the Hive dataset, piece path (K2 once a tile)",
+                  rows=table.num_rows, tiles=len(tiles), piece_path=ex.use_piece,
+                  launches=launches, cold=cold, warm=warm, upload_s=upload_s,
+                  query_ms=statistics.median(walls), runs_ms=walls, correct=True)
+    return fields, result, table, tiles
+
+
+def files_io_q6(root: str, tile_rows: int, device, want_unscaled: int):
+    """I3: Q6 over the 1994 partition only."""
+    from velox_tpu_torch.connectors.tpch.plans import build_q6
+    from velox_tpu_torch.connectors.tpch.queries import Q6_COLUMNS
+    from velox_tpu_torch.exec.runner import LocalExecutor
+
+    (table, read, found), read_s = _timed(
+        lambda: _hive_read(root, Q6_COLUMNS, lambda keys: keys["l_shipyear"] == "1994"), "cpu")
+    ex = LocalExecutor(build_q6(table), tile_rows=tile_rows, device=device)
+    result, query_s = _timed(ex.run, device)
+    got = int(result.columns["revenue"][0])
+    assert read == 1 and found == 7, (read, found)
+    return dict(line="I3", path="partition filter: 1 of 7 splits read", splits_read=read,
+                splits=found, rows=table.num_rows, read_s=read_s, query_ms=query_s * 1e3,
+                revenue_unscaled=got, correct=got == want_unscaled)
+
+
+def files_io_pruning(cache, tile_rows: int, device, root: str):
+    """I4: ``orders`` sorted by date and written as one file; a load with a
+    1995 date range decodes only the row groups whose statistics overlap it."""
+    import math
+    import os
+
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.io.table import Table, _row_group_may_match
+    from velox_tpu_torch.plan import PlanBuilder
+
+    cols = ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate", "o_orderpriority"]
+    orders = cache.table("orders").select(cols)
+    plan = PlanBuilder().table_scan(orders).orderby(["o_orderdate"]).table_write(root).build()
+    out, write_s = _timed(lambda: LocalExecutor(plan, tile_rows=tile_rows, device=device).run(),
+                          device)
+    [name] = os.listdir(root)
+    path = os.path.join(root, name)
+    lo, hi = DAY_1995, DAY_1995 + 364
+    meta = pq.ParquetFile(path).metadata
+    date_col = meta.schema.names.index("o_orderdate")
+    groups, overlap = [], []
+    for i in range(meta.num_row_groups):
+        rg = meta.row_group(i)
+        st = rg.column(date_col).statistics
+        groups.append(rg.num_rows)
+        overlap.append(bool(st.max >= lo and st.min <= hi))
+        assert overlap[-1] == _row_group_may_match(rg, {"o_orderdate": (lo, hi)})
+    loaded, read_s = _timed(
+        lambda: Table.load_parquet(path, ranges={"o_orderdate": (lo, hi)}), "cpu")
+    d = orders.columns["o_orderdate"]
+    in_1995 = (d >= lo) & (d <= hi)
+    n_1995 = int(in_1995.sum())
+    want = (n_1995, int(orders.columns["o_totalprice"][in_1995].astype(np.int64).sum()))
+    agg = (
+        PlanBuilder()
+        .table_scan(loaded, filter="o_orderdate between date '1995-01-01' and date '1995-12-31'")
+        .aggregation([], ["count(*) as n", "sum(o_totalprice) as s"]).build()
+    )
+    res, query_s = _timed(lambda: LocalExecutor(agg, tile_rows=tile_rows, device=device).run(),
+                          device)
+    got = (int(res.columns["n"][0]), int(res.columns["s"][0]))
+    read_groups = sum(overlap)
+    bound = math.ceil(n_1995 / max(groups)) + 1
+    # (a file of one or two groups, as at SF 0.01, has nothing to prune)
+    assert read_groups <= bound and (read_groups < len(groups) / 2 or len(groups) <= 2), (
+        read_groups, bound, groups)
+    assert loaded.num_rows == sum(g for g, o in zip(groups, overlap) if o)
+    return dict(line="I4", path="row groups pruned by statistics (_row_group_may_match)",
+                rows=orders.num_rows, rows_written=int(out.columns["rows"][0]),
+                row_groups=len(groups), rows_per_group=max(groups), groups_read=read_groups,
+                groups_bound=bound, rows_loaded=loaded.num_rows, rows_1995=n_1995,
+                write_s=write_s, read_s=read_s, query_ms=query_s * 1e3,
+                count_sum=list(got), correct=got == want)
+
+
+def files_io_arrow(cache, tile_rows: int, device, q6_want: int, q1_result):
+    """I5: Q6 over an Arrow RecordBatchReader of 2^20-row batches through
+    ``PlanBuilder.arrow_stream``, and Q1's result through the Arrow PyCapsule
+    stream and back."""
+    import pyarrow as pa
+
+    from velox_tpu_torch.connectors.tpch.queries import Q6_COLUMNS
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.io.table import Table
+    from velox_tpu_torch.plan import ArrowStreamNode, PlanBuilder
+
+    arrow, export_s = _timed(lambda: cache.table("lineitem").select(Q6_COLUMNS).to_arrow(), "cpu")
+    batches = arrow.to_batches(1 << 20)
+    reader = pa.RecordBatchReader.from_batches(arrow.schema, batches)
+    plan, ingest_s = _timed(lambda: (
+        PlanBuilder().arrow_stream(reader).filter(Q6_FILTER)
+        .aggregation([], ["sum(l_extendedprice * l_discount) as revenue"]).build()), "cpu")
+    ex = LocalExecutor(plan, tile_rows=tile_rows, device=device)
+    assert isinstance(ex.lin.source, ArrowStreamNode), type(ex.lin.source)
+    result, query_s = _timed(ex.run, device)
+    got = int(result.columns["revenue"][0])
+    back = Table.from_arrow(pa.table(q1_result))  # through __arrow_c_stream__
+    return dict(line="I5", path="ArrowStreamNode as the scan source", batches=len(batches),
+                rows=arrow.num_rows, export_s=export_s,
+                ingest_s=ingest_s, query_ms=query_s * 1e3, revenue_unscaled=got,
+                q1_roundtrip=tables_equal(back, q1_result),
+                correct=got == q6_want and tables_equal(back, q1_result))
+
+
+def files_io_serde(cache, tile_rows: int, device, tile, workdir: str, row_count: int):
+    """I6: a page of every ``orders`` row fetched from the card (compressed
+    and not), UnsafeRow and CompactRow over its first ``row_count`` rows, and
+    one device tile through the vector saver."""
+    import os
+
+    import torch
+
+    from velox_tpu_torch import native
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.io.table import Table
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.serde import (
+        decode_compactrow,
+        decode_unsaferow,
+        deserialize_page,
+        encode_compactrow,
+        encode_unsaferow,
+        serialize_page,
+    )
+    from velox_tpu_torch.vector.saver import load_batch, save_batch
+
+    cols = ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate", "o_orderpriority"]
+    orders = cache.table("orders").select(cols)
+    plan = PlanBuilder().table_scan(orders).project(cols).build()
+    fetched = LocalExecutor(plan, tile_rows=tile_rows, device=device).run()
+    fields = dict(line="I6", path="native codecs loaded", native=native.available(),
+                  rows=fetched.num_rows)
+    ok = native.available() and tables_equal(fetched, orders)
+    raw_mb = sum(a.nbytes for a in fetched.columns.values()) / 1e6
+    for compress in (False, True):
+        page, ser_s = _timed(lambda: serialize_page(fetched, compress=compress), "cpu")
+        back, de_s = _timed(lambda: deserialize_page(page), "cpu")
+        ok = ok and tables_equal(back, fetched)
+        key = "zlib" if compress else "plain"
+        fields[key] = dict(page_mb=len(page) / 1e6, serialize_s=ser_s, deserialize_s=de_s,
+                           serialize_mb_per_s=raw_mb / ser_s, deserialize_mb_per_s=raw_mb / de_s)
+    n = min(row_count, fetched.num_rows)
+    head = Table(fetched.schema, {k: v[:n] for k, v in fetched.columns.items()},
+                 fetched.string_tables)
+    for name, enc, dec in (("unsaferow", encode_unsaferow, decode_unsaferow),
+                           ("compactrow", encode_compactrow, decode_compactrow)):
+        rows, enc_s = _timed(lambda: enc(head), "cpu")
+        back, dec_s = _timed(lambda: dec(rows, head.schema), "cpu")
+        ok = ok and tables_equal(back, head)
+        fields[name] = dict(rows=n, bytes=sum(map(len, rows)), encode_s=enc_s, decode_s=dec_s)
+    path = os.path.join(workdir, "tile.vxpg")
+    _, save_s = _timed(lambda: save_batch(tile, path), device)
+    loaded, load_s = _timed(lambda: load_batch(path, capacity=tile.capacity, device=device),
+                            device)
+    same = int(loaded.length) == int(tile.length)
+    for a, b in zip(loaded.columns, tile.columns):
+        va, ma = a.decode(tile.capacity)
+        vb, mb = b.decode(tile.capacity)
+        live = torch.arange(tile.capacity, device=va.device) < tile.length
+        same = same and torch.equal(va[live], vb[live]) and (ma is None) == (mb is None)
+        if a.strings is not None:
+            same = same and a.strings.values() == b.strings.values()
+    fields["saver"] = dict(rows=int(tile.length), file_mb=os.path.getsize(path) / 1e6,
+                           save_s=save_s, load_s=load_s, equal=same)
+    fields["correct"] = bool(ok and same)
+    return fields
+
+
+def files_io_encodings(rows: int, device, runs: int):
+    """I7: fuzzed BIGINT batches of ``rows`` rows with SEQUENCE and BIAS
+    columns on the device, through ExprSet beside their flat copies."""
+    import torch
+
+    import velox_tpu_torch as vtt
+    from velox_tpu_torch.expr.compiler import ExprSet
+    from velox_tpu_torch.expr.parser import parse_expr
+    from velox_tpu_torch.vector.column import Batch, Encoding
+    from velox_tpu_torch.vector.fuzzer import FuzzerOptions, VectorFuzzer
+
+    schema = vtt.RowType(["c0", "c1"], [vtt.BIGINT, vtt.BIGINT])
+    exprs = [parse_expr(sql, schema) for sql in FUZZ_EXPRS]
+    seen, batches, ok, decoded = set(), [], True, []
+    seed = FUZZ_SEED
+    while not {Encoding.SEQUENCE, Encoding.BIAS} <= seen:
+        fz = VectorFuzzer(seed, FuzzerOptions(sequence_ratio=0.45, bias_ratio=0.45),
+                          device=device)
+        batch = fz.batch(schema, rows)
+        flat = Batch.make(schema, [fz.flat_copy(c, rows) for c in batch.columns],
+                          batch.length, capacity=rows)
+        n = int(batch.length)
+        for sql, got, want in zip(FUZZ_EXPRS, ExprSet(exprs).eval(batch),
+                                  ExprSet(exprs).eval(flat)):
+            def lane(x, fill):
+                if x is None:
+                    return torch.full((n,), fill, device=batch.device)
+                return x.expand(rows)[:n] if x.dim() == 0 else x[:n]
+
+            v1, v2 = lane(got.validity, True), lane(want.validity, True)
+            e1, e2 = lane(got.errors, False), lane(want.errors, False)
+            keep = v1 & ~e1
+            same = (torch.equal(v1, v2) and torch.equal(e1, e2)
+                    and torch.equal(lane(got.values, 0)[keep], lane(want.values, 0)[keep]))
+            ok = ok and same
+        for col in batch.columns:
+            seen.add(col.encoding)
+            if col.encoding in (Encoding.SEQUENCE, Encoding.BIAS):
+                times = [_timed(lambda: col.decode(rows), device)[1] * 1e3 for _ in range(runs)]
+                info = dict(encoding=col.encoding.value, decode_ms=statistics.median(times))
+                # the decode itself, against a formula that shares no code with it
+                values, validity = col.decode(rows)
+                if col.encoding == Encoding.SEQUENCE:
+                    info["runs"] = int(col.data.shape[0])
+                    lengths = col.data.to(torch.int64)
+                    want_values = torch.repeat_interleave(col.base.data.to(torch.int64), lengths)
+                    want_validity = (None if col.base.validity is None
+                                     else torch.repeat_interleave(col.base.validity, lengths))
+                else:
+                    info["delta_bytes"] = col.data.element_size()
+                    want_values = int(col.base.data.item()) + col.data.to(torch.int64)
+                    want_validity = col.validity
+                info["decode_equal"] = bool(
+                    torch.equal(values.to(torch.int64), want_values)
+                    and (validity is None) == (want_validity is None)
+                    and (validity is None or torch.equal(validity, want_validity)))
+                ok = ok and info["decode_equal"]
+                decoded.append(info)
+        batches.append(dict(seed=seed, length=n,
+                            encodings=[c.encoding.value for c in batch.columns]))
+        seed += 1
+    return dict(line="I7", path="SEQUENCE and BIAS columns decoded on the device",
+                rows=rows, expressions=len(FUZZ_EXPRS), batches=batches, decoded=decoded,
+                correct=bool(ok))
+
+
+def run_files_io(cache, tile_rows: int, runs: int, device, workdir: str, wrappers,
+                 oracles=None, fuzz_rows: int = 1 << 24, row_count: int = 65536):
+    """Every line of the files / host-formats slice (I1-I7) at ``cache``'s
+    scale factor, on ``device``; the datasets are written under ``workdir``,
+    which is removed at the end with the data cache's entries.  Returns the
+    lines' fields."""
+    import os
+    import shutil
+
+    from velox_tpu_torch.connectors.tpch.plans import oracle_result
+    from velox_tpu_torch.connectors.tpch.queries import Q1_COLUMNS
+    from velox_tpu_torch.io.cache import DEFAULT_CACHE
+
+    oracles = oracles or {}
+    want1 = oracles.get(1)
+    if want1 is None:
+        want1 = oracle_result(1, {"lineitem": cache.table("lineitem").select(Q1_COLUMNS)})
+    q6_want = q6_unscaled(cache.table("lineitem"))
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        root = os.path.join(workdir, "lineitem_by_year")
+        lines = [files_io_write(cache, tile_rows, device, root)]
+        fields, q1_result, _, tiles = files_io_q1(root, tile_rows, runs, device, want1, wrappers)
+        lines.append(fields)
+        lines.append(files_io_q6(root, tile_rows, device, q6_want))
+        lines.append(files_io_pruning(cache, tile_rows, device,
+                                      os.path.join(workdir, "orders_by_date")))
+        lines.append(files_io_arrow(cache, tile_rows, device, q6_want, q1_result))
+        lines.append(files_io_serde(cache, tile_rows, device, tiles[0], workdir, row_count))
+        del tiles
+        lines.append(files_io_encodings(fuzz_rows, device, runs))
+    finally:
+        DEFAULT_CACHE.clear()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return lines
+
+
 _T0 = time.perf_counter()
 
 
@@ -2444,7 +2907,9 @@ class TpchTables:
         if name not in self._tables:
             t0 = time.perf_counter()
             cols = [c for c in SCHEMAS[name].names if c in self.columns[name]]
-            self._tables[name] = load_table(name, self.sf, cols)
+            # generated in every run (no parquet cache), as in earlier runs;
+            # the files_io phase writes and reads files on purpose
+            self._tables[name] = load_table(name, self.sf, cols, cache_dir=None)
             self.generate_s[name] = time.perf_counter() - t0
         return self._tables[name]
 
@@ -3126,6 +3591,22 @@ def main() -> int:
     say("dbgen_golden", **fields)
     summary["dbgen q1 q6 q3 q13"] = [None, None, fields["generate_s"],
                                      sum(fields[f"q{n}_s"] for n in (1, 6, 3, 13)) * 1e3, None]
+
+    # ---- the files / host-formats slice (I1-I7): a Hive dataset written and
+    # read back, Q1 and Q6 over it, parquet pruning, Arrow streams, the serde
+    # and the saver, SEQUENCE / BIAS columns.  I2's Q1 launches
+    # grouped_piece_sums once a tile (the counts set to 0 just before its
+    # first run and read just after; asserted)
+    import os
+
+    from velox_tpu_torch.ops.cuda_build import build_dir
+
+    t0 = time.perf_counter()
+    for fields in run_files_io(cache, args.tile_rows, args.runs, DEVICE,
+                               os.path.join(build_dir(), "files_io"), wrappers, oracles):
+        assert fields["correct"], fields
+        say("files_io", sf=args.sf, **fields)
+    summary["files_io I1-I7"] = [None, None, None, (time.perf_counter() - t0) * 1e3, None]
     say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -31,6 +31,11 @@ import velox_tpu_torch.ops.int128, velox_tpu_torch.exec.hugeint
 import velox_tpu_torch.exec.sketch, velox_tpu_torch.functions.spark.scalar
 import velox_tpu_torch.utils.bloom, velox_tpu_torch.utils.spark_bloom
 import velox_tpu_torch.connectors.tpch.dbgen
+import velox_tpu_torch.io.filesystems, velox_tpu_torch.io.cache
+import velox_tpu_torch.connectors.base, velox_tpu_torch.connectors.hive
+import velox_tpu_torch.native, velox_tpu_torch.serde, velox_tpu_torch.serde.page
+import velox_tpu_torch.serde.rows, velox_tpu_torch.vector.fuzzer
+import velox_tpu_torch.vector.saver, velox_tpu_torch.utils.reporter
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "velox_tpu" or m.startswith("velox_tpu.")

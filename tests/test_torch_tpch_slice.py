@@ -178,8 +178,11 @@ def test_unported_plans_raise_by_name():
     from velox_tpu_torch.plan import PlanBuilder
 
     scan = lambda: PlanBuilder().table_scan(tables["lineitem"])  # noqa: E731
-    with pytest.raises(NotImplementedError, match="table_write"):
-        scan().table_write(None)
+    # table_write is ported (tests/test_torch_connectors.py runs it): it
+    # builds a node whose output is the written row count
+    write = scan().table_write("unused").build()
+    assert type(write).__name__ == "TableWriteNode"
+    assert [str(t) for t in write.output_schema.types] == ["BIGINT"]
     # unnest and group_id run: every lineitem row once per grouping set, and
     # one row per element of an array built from its columns
     n = tables["lineitem"].num_rows

@@ -92,10 +92,21 @@ def test_flat_gather():
 
 
 def test_sequence_and_bias_raise_by_name():
-    with pytest.raises(NotImplementedError, match="SEQUENCE"):
-        PortColumn.sequence(None, None, 8)
-    with pytest.raises(NotImplementedError, match="BIAS"):
-        PortColumn.bias(0, None, vtt.BIGINT)
+    """SEQUENCE and BIAS are ported (``tests/test_torch_encodings.py`` holds
+    them to the JAX package).  What still raises names the encoding: a
+    SEQUENCE column has no row capacity of its own, and its run lengths must
+    cover the capacity it is given."""
+    runs = PortColumn.from_numpy(np.array([1, 2], np.int64), vtt.BIGINT)
+    seq = PortColumn.sequence(runs, [3, 5], 8)
+    assert seq.encoding == Encoding.SEQUENCE
+    assert seq.to_numpy(8)[0].tolist() == [1, 1, 1, 2, 2, 2, 2, 2]
+    with pytest.raises(ValueError, match="sequence"):
+        seq.capacity
+    with pytest.raises(AssertionError, match="sum to capacity"):
+        PortColumn.sequence(runs, [3, 4], 8)
+    bias = PortColumn.bias(1 << 40, np.array([-1, 2], np.int8), vtt.BIGINT)
+    assert bias.encoding == Encoding.BIAS
+    assert bias.to_numpy(2)[0].tolist() == [(1 << 40) - 1, (1 << 40) + 2]
 
 
 def _schemas():
@@ -194,11 +205,24 @@ def test_device_tiles_and_to_pandas():
         )
 
 
-def test_unported_file_formats_raise():
-    _, port = _tables(10)
-    with pytest.raises(NotImplementedError, match="parquet"):
-        port.save_parquet("x")
-    with pytest.raises(NotImplementedError, match="parquet"):
-        PortTable.load_parquet("x")
-    with pytest.raises(NotImplementedError, match="Arrow"):
+def test_unported_file_formats_raise(tmp_path):
+    """Parquet and Arrow are ported (``tests/test_torch_files.py`` holds them
+    to the JAX package): a table round-trips, the JAX package reads the
+    port's file, and a missing file or a source that is not Arrow data
+    raises."""
+    ref, port = _tables(10)
+    path = str(tmp_path / "t.parquet")
+    port.save_parquet(path)
+    valid = port.validities["small"]
+    for back in (PortTable.load_parquet(path), RefTable.load_parquet(path)):
+        for name in port.schema.names:
+            want = port.columns[name]
+            if name == "small":  # a NULL row reads back as 0
+                want = np.where(valid, want, 0)
+            np.testing.assert_array_equal(back.columns[name], want)
+        np.testing.assert_array_equal(back.validities["small"], valid)
+    assert PortTable.from_arrow(port.to_arrow()).num_rows == 10
+    with pytest.raises(FileNotFoundError):
+        PortTable.load_parquet(str(tmp_path / "missing.parquet"))
+    with pytest.raises(TypeError):
         PortTable.from_arrow(None)

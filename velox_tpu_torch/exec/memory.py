@@ -6,9 +6,11 @@ limits/tracking) and MemoryArbitrator.h:43 (reclaimers).
 
 The pool tree tracks *logical* byte reservations of device-resident state
 (scan tiles, join builds, aggregation carries and their merge).  When a reservation would exceed a pool's
-limit, registered reclaimers run largest child first.  Nothing registers a
-reclaimer yet: spilling (``Spiller``) comes with the memory / spill slice, and
-until then an over-limit reservation raises ``MemoryPoolError``.
+limit, registered reclaimers run largest child first.  The host data cache
+(``io/cache.py``) reserves its bytes on the root pool and registers its LRU
+eviction as the root's reclaimer; spilling (``Spiller``) comes with the
+memory / spill slice, and until then an over-limit reservation that nothing
+reclaims raises ``MemoryPoolError``.
 """
 
 from __future__ import annotations

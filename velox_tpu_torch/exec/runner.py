@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..dtypes import DataType, RowType, TypeKind
+from ..dtypes import BIGINT, DataType, RowType, TypeKind
 from ..expr.compiler import ExprSet
 from ..expr.ir import Expr, FieldAccess
 from ..io.table import Table
@@ -73,12 +73,15 @@ from ..plan.nodes import (
     ProjectNode,
     SortKey,
     TableScanNode,
+    TableWriteMergeNode,
+    TableWriteNode,
     TopNNode,
     UnionAllNode,
     UnnestNode,
     ValuesNode,
 )
 from ..ops.compact import compact
+from ..utils import reporter as _rep
 from ..utils.transfer import bucket_of, fetch_prefix, fetch_tree
 from ..vector.column import Batch, Column, Encoding, _take_clamped
 from ..vector.string_table import StringTable
@@ -748,8 +751,6 @@ class AggExecutor:
                 # synthetic null-bitmask key (one extra sort key / carry
                 # column); every downstream stage (carry merge, host merge)
                 # treats it as an ordinary key
-                from ..dtypes import BIGINT
-
                 nullable_names = tuple(k.name for k in self.key_infos if k.nullable)
                 self.key_infos.append(
                     KeyInfo(
@@ -1387,7 +1388,16 @@ class LocalExecutor:
     sub-executors run on the parent's device and share its pool.  Error
     counts are carried on the device and checked once at the end (no per-tile
     host sync).
+
+    A TableWrite (and TableWriteMerge) at the root is taken off the plan: the
+    writer consumes the result of the plan below it at the end of ``run()``
+    and the result becomes one row with the written row count.
     """
+
+    # of a root TableWrite / TableWriteMerge (kept when the constructor runs
+    # again over the plan without them)
+    _write_sink_factory = None
+    _tw_merge = False
 
     def __init__(
         self,
@@ -1419,6 +1429,13 @@ class LocalExecutor:
                 limit=self.config.query_memory_limit_bytes,
             )
         self.pool = pool
+        if isinstance(root, TableWriteMergeNode):
+            # merge fragment row counts into one row (exec/TableWriteMerge.cpp)
+            self._tw_merge = True
+            root = root.source
+        if isinstance(root, TableWriteNode):
+            self._write_sink_factory = root.sink_factory
+            root = root.source
         # data-dependent strings (cast to VARCHAR, array_join) ride as their
         # source values and render on the host at the end of run(); a second
         # pass over an already rewritten plan finds nothing and keeps the specs
@@ -1812,6 +1829,18 @@ class LocalExecutor:
             t_render = time.perf_counter()
             result = render_result(result, self._strcast_specs)
             self.render_seconds = time.perf_counter() - t_render
+        if self._write_sink_factory is not None:
+            sink = self._write_sink_factory()
+            sink.append(result)
+            sink.finish()
+            result = _rows_table(result.num_rows)
+        if self._tw_merge:
+            rows = result.columns.get("rows")
+            result = _rows_table(int(np.sum(rows)) if rows is not None else result.num_rows)
+        _rep.increment_counter(_rep.METRIC_QUERY_COUNT)
+        _rep.increment_counter(_rep.METRIC_TILES_EXECUTED, n_tiles)
+        _rep.increment_counter(_rep.METRIC_ROWS_SCANNED, self.source_table.num_rows)
+        _rep.record_metric(_rep.METRIC_QUERY_SECONDS, time.perf_counter() - t_start)
         if stats is not None:
             stats.total_seconds = time.perf_counter() - t_start
         return result
@@ -2239,6 +2268,11 @@ def _replace_plan_node(root: PlanNode, target: PlanNode, replacement: PlanNode) 
         return dataclasses.replace(node, **changed) if changed else node
 
     return walk(root)
+
+
+def _rows_table(rows: int) -> Table:
+    """The one-row result of a table write: the written row count."""
+    return Table(RowType(["rows"], [BIGINT]), {"rows": np.asarray([rows], dtype=np.int64)})
 
 
 def _batch_strings(batch: Batch) -> Dict[str, StringTable]:

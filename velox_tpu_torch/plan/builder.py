@@ -5,14 +5,13 @@ velox/exec/tests/utils/PlanBuilder.h:77 — the same ergonomics: SQL strings for
 expressions, method chaining for operators, automatic projection of aggregate
 arguments, automatic string-literal binding against scan dictionaries.
 
-Ported so far: ``table_scan``, ``values``, ``filter``, ``project``,
-``aggregation`` (plain aggregates and ``count(distinct x)``), ``hash_join``
-(every join type), ``cross_join``, ``nested_loop_join``, ``union_all``,
-``merge_exchange``, ``window``, ``row_number``, ``topn_row_number``,
-``mark_distinct``, ``unnest``, ``group_id``, ``assign_unique_id``,
-``enforce_single_row``, ``orderby``, ``topn``, ``limit``, ``build``.
-``arrow_stream`` and ``table_write`` (file formats) raise
-``NotImplementedError`` naming the slice that brings them.
+Ported: ``table_scan``, ``values``, ``arrow_stream``, ``filter``,
+``project``, ``aggregation`` (plain aggregates and ``count(distinct x)``),
+``hash_join`` (every join type), ``cross_join``, ``nested_loop_join``,
+``union_all``, ``merge_exchange``, ``window``, ``row_number``,
+``topn_row_number``, ``mark_distinct``, ``unnest``, ``group_id``,
+``assign_unique_id``, ``enforce_single_row``, ``orderby``, ``topn``,
+``limit``, ``table_write``, ``build``.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ from ..io.table import Table
 from .nodes import (
     AggregationNode,
     AggregationStep,
+    ArrowStreamNode,
     AssignUniqueIdNode,
     EnforceSingleRowNode,
     FilterNode,
@@ -41,6 +41,7 @@ from .nodes import (
     ProjectNode,
     SortKey,
     TableScanNode,
+    TableWriteNode,
     TopNNode,
     UnionAllNode,
     UnnestNode,
@@ -71,17 +72,6 @@ def _split_call_args(text):
             start = i + 1
     out.append(text[start:].strip())
     return out
-
-
-def _later(method: str, slice_name: str):
-    def raiser(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"PlanBuilder.{method} is not ported yet; it comes with the "
-            f"{slice_name} slice"
-        )
-
-    raiser.__name__ = method
-    return raiser
 
 
 class PlanBuilder:
@@ -157,6 +147,12 @@ class PlanBuilder:
     def values(self, table: Table) -> "PlanBuilder":
         assert self.node is None
         self.node = ValuesNode(table)
+        return self
+
+    def arrow_stream(self, reader) -> "PlanBuilder":
+        """Arrow RecordBatchReader / batch-iterable source (core::ArrowStreamNode)."""
+        assert self.node is None
+        self.node = ArrowStreamNode(reader)
         return self
 
     # ---- operators -----------------------------------------------------
@@ -662,6 +658,15 @@ class PlanBuilder:
         )
         return self
 
-    # ---- later slices ----------------------------------------------------
-    arrow_stream = _later("arrow_stream", "file formats")
-    table_write = _later("table_write", "file formats")
+    def table_write(
+        self,
+        root: str,
+        partition_by: Sequence[str] = (),
+    ) -> "PlanBuilder":
+        """Write the pipeline's rows as a (optionally partitioned) parquet
+        dataset (reference: PlanBuilder::tableWrite + HiveDataSink)."""
+        from ..connectors.hive import HiveDataSink
+
+        part = list(partition_by)
+        self.node = TableWriteNode(self.node, lambda: HiveDataSink(root, part))
+        return self

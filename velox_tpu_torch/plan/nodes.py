@@ -6,10 +6,11 @@ plans are *fully specified physical plans* — no SQL, no optimizer; an
 integrator (or PlanBuilder) constructs the tree.
 
 This package has the nodes its executor runs so far: TableScan, Values,
-Filter, Project, Aggregation, HashJoin, Unnest, GroupId, AssignUniqueId,
-UnionAll, MergeExchange, the finishers OrderBy / TopN / Limit /
-EnforceSingleRow, and (in ``exec/window.py``, as in the JAX package) Window.
-Exchange and table-write nodes come with the slices that execute them.
+ArrowStream, Filter, Project, Aggregation, HashJoin, Unnest, GroupId,
+AssignUniqueId, UnionAll, MergeExchange, TableWrite / TableWriteMerge, the
+finishers OrderBy / TopN / Limit / EnforceSingleRow, and (in
+``exec/window.py``, as in the JAX package) Window.  The distributed exchange
+nodes come with the slice that executes them.
 
 Nodes carry typed expressions from ``expr``; output schemas are computed
 bottom-up at construction.
@@ -83,6 +84,18 @@ class ValuesNode(PlanNode):
         self.output_schema = self.table.schema
 
 
+class ArrowStreamNode(ValuesNode):
+    """Consume an Arrow stream (RecordBatchReader / batch iterable / Arrow
+    PyCapsule object) as a source (reference: core::ArrowStreamNode +
+    exec/ArrowStream.cpp via the C-ABI bridge, vector/arrow/Bridge.h).  The
+    stream materializes to a host Table at plan-build time — Arrow data is
+    host-resident either way — so the executor scans it as it scans Values."""
+
+    def __init__(self, reader, id: Optional[str] = None):
+        self.reader = reader
+        super().__init__(Table.from_arrow(reader), id or _next_id("arrowstream"))
+
+
 @dataclasses.dataclass
 class FilterNode(PlanNode):
     source: PlanNode
@@ -137,6 +150,35 @@ class AggregationNode(PlanNode):
             names.append(name)
             types.append(bound.result_type)
         self.output_schema = RowType(names, types)
+
+
+@dataclasses.dataclass
+class TableWriteNode(PlanNode):
+    """Write the source's rows through a connector DataSink.
+
+    Reference: core::TableWriteNode + exec/TableWriter.h:102 — output is a
+    single row holding the written row count."""
+
+    source: PlanNode
+    sink_factory: object  # () -> DataSink (kept opaque; not serialized)
+    id: str = dataclasses.field(default_factory=lambda: _next_id("tablewrite"))
+
+    def __post_init__(self):
+        self.sources = (self.source,)
+        self.output_schema = RowType(["rows"], [BIGINT])
+
+
+@dataclasses.dataclass
+class TableWriteMergeNode(PlanNode):
+    """Merge TableWrite fragment results into one row-count row
+    (reference: core::TableWriteMergeNode + exec/TableWriteMerge.cpp)."""
+
+    source: PlanNode
+    id: str = dataclasses.field(default_factory=lambda: _next_id("twmerge"))
+
+    def __post_init__(self):
+        self.sources = (self.source,)
+        self.output_schema = RowType(["rows"], [BIGINT])
 
 
 @dataclasses.dataclass(frozen=True)

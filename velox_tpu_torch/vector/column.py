@@ -12,8 +12,11 @@ velox/vector/SelectivityVector.h:39.
 * The reference's SelectivityVector is ``Batch.selection``: a boolean mask over
   the capacity.  Filters narrow the mask; nothing is compacted on this path.
 * Encodings FLAT / CONSTANT / DICTIONARY are kept because they are algebraic
-  (eval-on-base + gather).  SEQUENCE and BIAS are named but not implemented
-  yet: their constructors raise ``NotImplementedError``.
+  (eval-on-base + gather).  SEQUENCE (run lengths over per-run values) and
+  BIAS (narrow deltas from one 64-bit bias) are the reference's
+  SequenceVector and BiasVector.  A SEQUENCE column decodes with a binary
+  search of the run ends, O(rows x log runs), where the JAX package compares
+  every row with every run end.
 * ``decode`` is the DecodedVector analog: collapse any encoding to
   (values, validity).  Narrow integer uploads widen here.
 * Strings on device are always int32 dictionary codes (see string_table.py).
@@ -38,8 +41,14 @@ class Encoding(str, Enum):
     FLAT = "FLAT"
     CONSTANT = "CONSTANT"
     DICTIONARY = "DICTIONARY"
-    SEQUENCE = "SEQUENCE"  # not implemented in this package yet
-    BIAS = "BIAS"  # not implemented in this package yet
+    # run-length runs over a base of run values (velox SequenceVector,
+    # vector/VectorEncoding.h:32): ``data`` holds int32 run LENGTHS, ``base``
+    # the per-run values
+    SEQUENCE = "SEQUENCE"
+    # narrow deltas from a shared bias value (velox BiasVector): ``base`` is
+    # a CONSTANT column carrying the bias, ``data`` the narrow (int8/int16/
+    # int32) deltas; decode() widens and adds
+    BIAS = "BIAS"
 
 
 def _take_clamped(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -47,6 +56,14 @@ def _take_clamped(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     ends (the JAX package's ``jnp.take(..., mode="clip")``)."""
     idx = indices.to(torch.int64).clamp(0, max(values.shape[0] - 1, 0))
     return values.index_select(0, idx)
+
+
+def _run_index(lengths: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Run of each row position: the count of run ends at or before it, by a
+    binary search of the run ends (the JAX package sums a [rows, runs]
+    compare, which is the same count)."""
+    ends = torch.cumsum(lengths.to(torch.int64), 0)
+    return torch.searchsorted(ends, rows.to(torch.int64), right=True, out_int32=True)
 
 
 @dataclasses.dataclass
@@ -109,19 +126,50 @@ class Column:
 
     @staticmethod
     def sequence(run_values: "Column", run_lengths, capacity: int) -> "Column":
-        raise NotImplementedError(
-            "SEQUENCE (run-length) columns are not ported yet"
+        """Run-length column: row r takes the value of the run containing r.
+
+        ``run_values`` is a FLAT column of per-run values (its validity is
+        the per-run null flag); ``run_lengths`` the matching run lengths,
+        which must sum to ``capacity``.  Reference: velox SequenceVector
+        (vector/SequenceVector.h)."""
+        assert run_values.encoding == Encoding.FLAT, "sequence base must be flat"
+        lengths = torch.as_tensor(
+            run_lengths, dtype=torch.int32, device=run_values.device
+        )
+        assert lengths.shape[0] == run_values.capacity
+        assert int(lengths.sum()) == capacity, "run lengths must sum to capacity"
+        return Column(
+            lengths, None, run_values, run_values.dtype, Encoding.SEQUENCE,
+            run_values.strings,
         )
 
     @staticmethod
-    def bias(bias_value, deltas, dtype: DataType, validity=None) -> "Column":
-        raise NotImplementedError("BIAS columns are not ported yet")
+    def bias(
+        bias_value,
+        deltas,
+        dtype: DataType,
+        validity=None,
+    ) -> "Column":
+        """Bias column: value[r] = bias + deltas[r], deltas stored narrow.
+
+        Reference: velox BiasVector (vector/BiasVector.h): a 64-bit column
+        whose values cluster near a center stores 1/2/4-byte deltas."""
+        d = torch.as_tensor(deltas)
+        assert not d.is_floating_point() and d.dtype != torch.bool
+        base = Column.constant(bias_value, dtype, device=d.device)
+        if validity is not None:
+            validity = torch.as_tensor(validity, dtype=torch.bool, device=d.device)
+        return Column(d, validity, base, dtype, Encoding.BIAS, None)
 
     # ---- shape -----------------------------------------------------------
     @property
     def capacity(self) -> int:
         if self.encoding == Encoding.CONSTANT:
             raise ValueError("constant column has no capacity; use batch capacity")
+        if self.encoding == Encoding.SEQUENCE:
+            # data holds run lengths, not rows: the row capacity comes from
+            # the batch (like CONSTANT)
+            raise ValueError("sequence column has no row capacity; use batch capacity")
         return self.data.shape[0]
 
     @property
@@ -167,7 +215,17 @@ class Column:
                 inner = _take_clamped(base_validity, self.data)
                 validity = inner if validity is None else (validity & inner)
             return values, validity
-        raise NotImplementedError(f"{self.encoding.value} columns are not ported yet")
+        if self.encoding == Encoding.SEQUENCE:
+            rows = torch.arange(capacity, dtype=torch.int64, device=self.device)
+            run_idx = _run_index(self.data, rows)
+            values = self._widen(_take_clamped(self.base.data, run_idx))
+            validity = None
+            if self.base.validity is not None:
+                validity = _take_clamped(self.base.validity, run_idx)
+            return values, validity
+        # BIAS
+        wide = self.dtype.device_dtype
+        return self.base.data.to(wide) + self.data.to(wide), self.validity
 
     def _widen(self, values: torch.Tensor) -> torch.Tensor:
         """Narrow-on-the-wire columns (int8/16/32 uploads of wider integer
@@ -211,6 +269,10 @@ class Column:
             cap = indices.shape[0]
             values, validity = self.decode(cap)
             return Column.flat(values, self.dtype, validity, self.strings)
+        if self.encoding == Encoding.SEQUENCE:
+            # compose: map gathered row positions to run indices, come back
+            # as a DICTIONARY over the run values (no materialization)
+            return Column.dictionary(_run_index(self.data, indices), self.base, None)
         validity = (
             None
             if self.validity is None
@@ -220,11 +282,10 @@ class Column:
             # Compose index arrays instead of materializing the gather.
             new_idx = _take_clamped(self.data, indices)
             return Column.dictionary(new_idx, self.base, validity)
-        if self.encoding != Encoding.FLAT:
-            raise NotImplementedError(
-                f"{self.encoding.value} columns are not ported yet"
-            )
         data = _take_clamped(self.data, indices)
+        if self.encoding == Encoding.BIAS:
+            # deltas gathered, the bias kept
+            return dataclasses.replace(self, data=data, validity=validity)
         return Column.flat(data, self.dtype, validity, self.strings)
 
     def flatten(self, capacity: int) -> "Column":
@@ -283,7 +344,11 @@ class Column:
             values = np.empty(length, dtype=object)
             values[:] = seg.to_pylist()
             return values, validity
-        cap = length if self.is_constant else self.capacity
+        cap = (
+            length
+            if self.is_constant or self.encoding == Encoding.SEQUENCE
+            else self.capacity
+        )
         values, validity = self.decode(cap)
         values = values.cpu().numpy()[:length]
         validity_np = None if validity is None else validity.cpu().numpy()[:length]
@@ -331,7 +396,9 @@ class Batch:
     ) -> "Batch":
         if capacity is None:
             capacity = next(
-                c.capacity for c in columns if c.encoding != Encoding.CONSTANT
+                c.capacity
+                for c in columns
+                if c.encoding not in (Encoding.CONSTANT, Encoding.SEQUENCE)
             )
         if device is None:
             device = next(
