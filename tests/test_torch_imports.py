@@ -36,6 +36,10 @@ import velox_tpu_torch.connectors.base, velox_tpu_torch.connectors.hive
 import velox_tpu_torch.native, velox_tpu_torch.serde, velox_tpu_torch.serde.page
 import velox_tpu_torch.serde.rows, velox_tpu_torch.vector.fuzzer
 import velox_tpu_torch.vector.saver, velox_tpu_torch.utils.reporter
+import velox_tpu_torch.exec.memory, velox_tpu_torch.exec.grace
+import velox_tpu_torch.exec.grouped, velox_tpu_torch.utils.testvalue
+import velox_tpu_torch.utils.stats, velox_tpu_torch.utils.trace
+import velox_tpu_torch.substrait, velox_tpu_torch.substrait.convert
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "velox_tpu" or m.startswith("velox_tpu.")
@@ -179,6 +183,33 @@ def test_sketch_and_spark_entry_points_raise_without_cuda():
     assert region.num_rows == 5
     with pytest.raises(RuntimeError, match="no CUDA device"):
         region.tile(0, 8)
+
+
+def test_memory_slice_entry_points_raise_without_cuda():
+    """GroupedExecution, the Grace join and the operator stats run plans:
+    ``device=None`` is CUDA there too, ``device="cpu"`` runs on the host."""
+    from velox_tpu_torch.exec.grace import grace_join_table
+    from velox_tpu_torch.exec.grouped import GroupedExecution
+    from velox_tpu_torch.config import DEFAULT_CONFIG
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.utils.stats import collect_operator_stats
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default device exists")
+    table, plan = _tiny_plan()
+    make = lambda t: PlanBuilder().table_scan(t).aggregation(["k"], ["sum(v) as s"]).build()  # noqa: E731
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GroupedExecution(make, [("all", table)])
+    assert GroupedExecution(make, [("all", table)], device="cpu").run().num_rows == 2
+    join = (PlanBuilder().table_scan(table)
+            .hash_join(PlanBuilder().table_scan(table).build(), ["k"], ["k"], output=["v"])
+            .build())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        grace_join_table(join, table, 1024, DEFAULT_CONFIG)
+    assert grace_join_table(join, table, 1024, DEFAULT_CONFIG, device="cpu").num_rows == 32
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collect_operator_stats(plan)
+    assert collect_operator_stats(plan, device="cpu").by_node()[plan.id].output_rows == 2
 
 
 def test_explicit_cpu_runs():

@@ -208,21 +208,21 @@ def _comment_text(
     """Sentence-shaped comments from the spec vocabulary.
 
     ``special_requests_frac`` rows contain 'special ... requests' so that the Q13
-    anti-LIKE predicate is selective, as with dbgen text.
+    anti-LIKE predicate is selective, as with dbgen text.  Words are drawn as
+    indices (``rng.choice(len(words), n)`` consumes the stream as
+    ``rng.choice(words, n)`` does) and joined as python strings.
     """
-    adv = rng.choice(_ADVERBS, n)
-    adj = rng.choice(_ADJECTIVES, n)
-    noun = rng.choice(_NOUNS, n)
-    verb = rng.choice(_VERBS, n)
-    prep = rng.choice(_PREPOSITIONS, n)
-    noun2 = rng.choice(_NOUNS, n)
+    adv, adj, noun, verb, prep, noun2 = (
+        np.asarray(words, dtype=object)[rng.choice(len(words), n)].tolist()
+        for words in (_ADVERBS, _ADJECTIVES, _NOUNS, _VERBS, _PREPOSITIONS, _NOUNS)
+    )
     out = [
         f"{a} {b} {c} {d} {e} the {f}"
         for a, b, c, d, e, f in zip(adv, adj, noun, verb, prep, noun2)
     ]
     if special_requests_frac > 0:
         hits = rng.random(n) < special_requests_frac
-        for i in np.flatnonzero(hits):
+        for i in np.flatnonzero(hits).tolist():
             out[i] = f"{adv[i]} special {noun[i]} requests {verb[i]}"
     return out
 
@@ -237,7 +237,9 @@ def _phone(rng: np.random.Generator, nationkey: np.ndarray) -> List[str]:
     b = rng.integers(100, 1000, len(nationkey))
     c = rng.integers(100, 1000, len(nationkey))
     d = rng.integers(1000, 10000, len(nationkey))
-    return [f"{w}-{x}-{y}-{z}" for w, x, y, z in zip(a, b, c, d)]
+    return [
+        f"{w}-{x}-{y}-{z}" for w, x, y, z in zip(a.tolist(), b.tolist(), c.tolist(), d.tolist())
+    ]
 
 
 class _Builder:
@@ -304,7 +306,7 @@ def gen_supplier(sf: float = 1.0, columns=None) -> Table:
     keys = np.arange(1, n + 1, dtype=np.int64)
     b.put("s_suppkey", keys)
     if b.needs("s_name"):
-        b.put_strings("s_name", [f"Supplier#{k:09d}" for k in keys])
+        b.put_strings("s_name", [f"Supplier#{k:09d}" for k in keys.tolist()])
     if b.needs("s_address"):
         rng = _rng("supplier", "address", sf)
         lengths = rng.integers(10, 41, n)
@@ -330,7 +332,7 @@ def gen_part(sf: float = 1.0, columns=None) -> Table:
     rng = _rng("part", "strings", sf)
     if b.needs("p_name"):
         w = rng.choice(P_NAME_WORDS, (n, 5))
-        b.put_strings("p_name", [" ".join(row) for row in w])
+        b.put_strings("p_name", [" ".join(row) for row in w.tolist()])
     mfgr = rng.integers(1, 6, n)
     b.put_categorical("p_mfgr", mfgr - 1, [f"Manufacturer#{i}" for i in range(1, 6)])
     if b.needs("p_brand"):
@@ -380,7 +382,7 @@ def gen_customer(sf: float = 1.0, columns=None) -> Table:
     keys = np.arange(1, n + 1, dtype=np.int64)
     b.put("c_custkey", keys)
     if b.needs("c_name"):
-        b.put_strings("c_name", [f"Customer#{k:09d}" for k in keys])
+        b.put_strings("c_name", [f"Customer#{k:09d}" for k in keys.tolist()])
     if b.needs("c_address"):
         rng = _rng("customer", "address", sf)
         b.put_strings("c_address", _random_alnum(rng, rng.integers(10, 41, n)))
@@ -510,7 +512,8 @@ def gen_lineitem(sf: float = 1.0, columns=None) -> Table:
             (pk + i4 * (s_count // 4 + (pk - 1) // s_count)) % s_count + 1,
         )
     if b.needs("l_linenumber"):
-        ln = np.concatenate([np.arange(1, c + 1) for c in line_counts]) if total else np.zeros(0)
+        starts = np.cumsum(line_counts) - line_counts  # each order's first line
+        ln = np.arange(total, dtype=np.int64) - np.repeat(starts, line_counts) + 1
         b.put("l_linenumber", ln.astype(np.int32))
     b.put("l_quantity", line["quantity"] * 100)
     b.put("l_extendedprice", line["extprice"])
@@ -542,16 +545,14 @@ def gen_lineitem(sf: float = 1.0, columns=None) -> Table:
 
 
 def _random_alnum(rng: np.random.Generator, lengths: np.ndarray) -> List[str]:
-    alphabet = np.asarray(list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 ,"))
+    alphabet = np.frombuffer(
+        b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 ,", dtype=np.uint8
+    )
     total = int(lengths.sum())
     chars = rng.integers(0, len(alphabet), total)
-    flat = alphabet[chars]
-    out = []
-    pos = 0
-    for ln in lengths:
-        out.append("".join(flat[pos : pos + ln]))
-        pos += ln
-    return out
+    flat = alphabet[chars].tobytes().decode("ascii")
+    ends = np.cumsum(lengths).tolist()
+    return [flat[a:b] for a, b in zip([0, *ends[:-1]], ends)]
 
 
 _GENERATORS = {

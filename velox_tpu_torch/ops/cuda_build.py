@@ -17,10 +17,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Optional
 
 from . import launch_geometry
+
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches``: under a lock, since
+    grouped execution launches kernels from several threads at once."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")

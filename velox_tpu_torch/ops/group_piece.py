@@ -259,7 +259,7 @@ def grouped_piece_sums(
         stream,
     )
     cuda_build.check(code, "grouped_piece_sums")
-    grouped_piece_sums.launches += 1
+    cuda_build.count_launch(grouped_piece_sums)
     grouped_piece_sums.last_geometry = geometry
     return list(out.unbind(0))
 

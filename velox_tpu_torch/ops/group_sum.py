@@ -127,7 +127,7 @@ def grouped_int64_sums(
         stream,
     )
     cuda_build.check(code, "grouped_int64_sums")
-    grouped_int64_sums.launches += 1
+    cuda_build.count_launch(grouped_int64_sums)
     grouped_int64_sums.last_geometry = geometry
     return tuple(out.unbind(0))
 

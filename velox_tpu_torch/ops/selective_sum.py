@@ -104,7 +104,7 @@ def selective_sum(
         stream,
     )
     cuda_build.check(code, "selective_sum")
-    selective_sum.launches += 1
+    cuda_build.count_launch(selective_sum)
     return out[0], out[1], out[2]
 
 

@@ -14,6 +14,7 @@ cannot be expressed over codes.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
@@ -71,7 +72,16 @@ class StringTable:
         return self._index.get(value)
 
     def intern_all(self, values: Sequence[str]) -> np.ndarray:
-        return np.asarray([self.intern(v) for v in values], dtype=np.int32)
+        if self.frozen:
+            return np.asarray([self.intern(v) for v in values], dtype=np.int32)
+        # ``intern`` in bulk: a new value's code is the count of values before it
+        index = self._index
+        first_new = len(index)
+        codes = np.fromiter(
+            (index.setdefault(v, len(index)) for v in values), dtype=np.int32, count=len(values)
+        )
+        self._values.extend(itertools.islice(index, first_new, None))
+        return codes
 
     def value(self, code: int) -> str:
         return self._values[code]
