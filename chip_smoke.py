@@ -155,7 +155,20 @@ data is the same in every run.  The script
    and ``print_plan`` over Q6 (each operator's rows against numpy), reads
    ``trace.status()`` and writes a ``torch.profiler`` trace through
    ``trace.device_profile``;
-17. prints a ``summary`` line (every query's time in one place), the
+17. runs the distributed slice (``distributed``: one line each) through
+   ``parallel.runner.DistributedExecutor`` over 4 gloo ranks that share the
+   card (``testing/world.py``; the tables written once as files the ranks
+   map): D-Q6 and D-Q1 (direct_agg), D-Q3 (the shuffle join of its orders
+   build, then the group exchange) and D-Q13 (a shuffle join into grouping)
+   at SF ``sf``, each row-exact against the numpy oracle; DX-skew, Q3 with
+   a probe bucket of ``DIST_SKEW_BUCKET_ROWS`` rows, which overflows and
+   re-probes (asserted); the 22 plans at SF 1 against the port's
+   ``LocalExecutor`` rows; DX-nccl, Q3 at SF 1 on NCCL at world size 1.
+   Each line holds the world, the backend, whether the collectives staged
+   through host buffers, the collectives' calls and bytes, the shuffle
+   buckets, the carry slots, the retries, ``query_s`` (the whole query on
+   rank 0) and every rank's peak device memory;
+18. prints a ``summary`` line (every query's time in one place), the
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line (``at_s``: seconds since the start); any
@@ -3111,6 +3124,105 @@ def run_substrait_obs(cache, tile_rows: int, device, workdir: str, wrappers, ora
     return lines
 
 
+# ---------------------------------------------------------------------------
+# The distributed slice (``velox_tpu_torch/parallel``): DistributedExecutor on
+# torch.distributed, every rank a process of ``testing/world.py``.  Four gloo
+# ranks share the card (NCCL refuses two ranks on one device); gloo is a host
+# transport, so every collective stages through pinned host buffers
+# (``staged`` on each line).  NCCL runs at world size 1 (DX-nccl).  The
+# tables cross once, as files the ranks map; a plan crosses as its query
+# number.
+
+DIST_RANKS = 4
+DIST_THREADS = 2  # torch host threads a rank: 4 ranks on the card's 8 host cores
+DIST_PER_DEVICE_ROWS = 1 << 22  # a rank's shard of a tile (a tile is 2^24 rows)
+# DX-skew: Q3's probe exchange bucket, far below a rank's share of a
+# destination at SF 10, so that the exchange overflows and every rank
+# re-probes the exact sizes
+DIST_SKEW_BUCKET_ROWS = 1 << 16
+DIST_QUERIES = (6, 1, 3, 13)
+DIST_TASK = "velox_tpu_torch.testing.dist_tasks:run_tpch"
+
+
+def _dist_line(name: str, num: int, sf: float, got) -> dict:
+    after = got["after"]
+    return dict(
+        line=name, num=num, sf=sf, world=got["world"], backend=got["backend"],
+        staged=got["staged"], **got["stats"], kind=after["kind"],
+        shuffle_joins=after["segments"], sjoin_buckets=after["sjoin_buckets"],
+        sjoin_outcaps=after["sjoin_outcaps"], carry_rows=after["carry_rows"],
+        carry_retries=got["carry_retries"], reprobes=got["reprobes"], query_s=got["seconds"],
+        device_peak_bytes=got["device_peak_bytes"], result_rows=got["result"].num_rows,
+    )
+
+
+def run_distributed(cache, small, device, oracles, tile_rows: int):
+    """The ``distributed`` lines: Q6, Q1 (direct_agg), Q3 (a shuffle join,
+    then the group exchange) and Q13 (a shuffle join into grouping) at SF
+    ``cache.sf`` over 4 gloo ranks sharing the card, each row-exact against
+    the numpy oracle (``oracles``, or computed); DX-skew, Q3 with an
+    undersized probe bucket (the re-probe asserted); the 22 plans at SF
+    ``small.sf`` against the port's LocalExecutor rows; DX-nccl, Q3 at SF
+    ``small.sf`` on NCCL at world size 1.  Yields each line's fields."""
+    from velox_tpu_torch.config import QueryConfig
+    from velox_tpu_torch.connectors.tpch.plans import build_query
+    from velox_tpu_torch.connectors.tpch.queries import QUERY_COLUMNS
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.testing import assert_same_rows
+    from velox_tpu_torch.testing.world import World
+
+    def tables_of(tables_cache, nums):
+        cols = {}
+        for num in nums:
+            for name, names in QUERY_COLUMNS[num].items():
+                cols.setdefault(name, set()).update(names)
+        return {name: tables_cache.table(name).select(
+                    [c for c in tables_cache.table(name).schema.names if c in names])
+                for name, names in cols.items()}
+
+    want_local = {}
+    with World(DIST_RANKS, "gloo", device, threads=DIST_THREADS) as world:
+        t0 = time.perf_counter()
+        handle = world.share_tables(tables_of(cache, DIST_QUERIES))
+        share_s = time.perf_counter() - t0
+        for num in DIST_QUERIES:
+            got = world.run(DIST_TASK, num, handle, DIST_PER_DEVICE_ROWS)
+            check_frame(num, got["result"], cache.for_query(num), want=oracles.get(num))
+            after = got["after"]
+            if num in (6, 1):
+                assert after["kind"] == "direct_agg", after
+            else:  # the build side is far over 2^16 rows: a shuffle join
+                assert after["kind"] == "sort_agg_exchange" and after["segments"] == 1, after
+            yield dict(_dist_line(f"D-Q{num}", num, cache.sf, got), tables_share_s=share_s,
+                       correct=True)
+        cfg = QueryConfig(exchange_bucket_rows=DIST_SKEW_BUCKET_ROWS)
+        got = world.run(DIST_TASK, 3, handle, DIST_PER_DEVICE_ROWS, cfg)
+        check_frame(3, got["result"], cache.for_query(3), want=oracles.get(3))
+        assert got["reprobes"] >= 1, got["after"]
+        assert got["after"]["sjoin_buckets"][0] > DIST_SKEW_BUCKET_ROWS, got["after"]
+        yield dict(_dist_line("DX-skew", 3, cache.sf, got), bucket_rows=DIST_SKEW_BUCKET_ROWS,
+                   correct=True)
+        t0 = time.perf_counter()
+        handle = world.share_tables(tables_of(small, range(1, 23)))
+        share_s = time.perf_counter() - t0
+        for num in range(1, 23):
+            tables = small.for_query(num)
+            t0 = time.perf_counter()
+            want = LocalExecutor(build_query(num, tables, device=device), tile_rows=tile_rows,
+                                 device=device).run()
+            local_s = time.perf_counter() - t0
+            want_local[num] = want
+            got = world.run(DIST_TASK, num, handle, DIST_PER_DEVICE_ROWS)
+            assert_same_rows(got["result"], want)
+            yield dict(_dist_line(f"sweep Q{num}", num, small.sf, got), local_query_s=local_s,
+                       tables_share_s=share_s, correct=True)
+    with World(1, "nccl", device, threads=DIST_THREADS) as world:
+        handle = world.share_tables(tables_of(small, (3,)))
+        got = world.run(DIST_TASK, 3, handle, DIST_PER_DEVICE_ROWS)
+        assert_same_rows(got["result"], want_local[3])
+        yield dict(_dist_line("DX-nccl", 3, small.sf, got), correct=True)
+
+
 _T0 = time.perf_counter()
 
 
@@ -4225,6 +4337,16 @@ def main() -> int:
         say("substrait_obs", sf=args.sf, **fields)
         summary[f"substrait_obs {fields['line']}"] = [None, None, None,
                                                       fields["line_s"] * 1e3]
+    # ---- the distributed slice: DistributedExecutor over 4 gloo ranks that
+    # share the card (Q6, Q1, Q3, Q13 at --sf, DX-skew, the 22 plans at SF 1)
+    # and over NCCL at world size 1 (DX-nccl); every line row-exact
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for fields in run_distributed(cache, small, DEVICE, oracles, args.tile_rows):
+        assert fields["correct"], fields
+        say("distributed", **fields)
+        summary[f"distributed {fields['line']}"] = [None, None, None, fields["query_s"] * 1e3]
+    say("distributed_total", seconds=time.perf_counter() - t0)
     say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

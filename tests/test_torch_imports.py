@@ -40,6 +40,10 @@ import velox_tpu_torch.exec.memory, velox_tpu_torch.exec.grace
 import velox_tpu_torch.exec.grouped, velox_tpu_torch.utils.testvalue
 import velox_tpu_torch.utils.stats, velox_tpu_torch.utils.trace
 import velox_tpu_torch.substrait, velox_tpu_torch.substrait.convert
+import velox_tpu_torch.parallel, velox_tpu_torch.parallel.exchange
+import velox_tpu_torch.parallel.distributed, velox_tpu_torch.parallel.shuffle_join
+import velox_tpu_torch.parallel.runner, velox_tpu_torch.testing.world
+import velox_tpu_torch.testing.dist_tasks
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "velox_tpu" or m.startswith("velox_tpu.")
@@ -250,3 +254,23 @@ def test_wrappers_raise_on_a_device_they_do_not_serve():
             [v], torch.zeros(1024, dtype=torch.int32, device=meta),
             torch.zeros(1024, dtype=torch.bool, device=meta), 4,
         )
+
+
+def test_top_level_run_sql_matches_reference():
+    """``velox_tpu_torch.run_sql`` beside ``run_plan``, as the JAX package's
+    ``velox_tpu.run_sql``: one TPC-H text at SF 0.01."""
+    import velox_tpu
+    import velox_tpu_torch
+    from velox_tpu.connectors.tpch import plans as ref_plans
+    from velox_tpu_torch.connectors.tpch import plans
+    from velox_tpu_torch.connectors.tpch.queries import SQL
+    from velox_tpu_torch.testing import assert_same_rows
+
+    tables = plans.load_query_tables(6, 0.01)
+    got = velox_tpu_torch.run_sql(SQL[6], tables, tile_rows=1 << 13, device="cpu")
+    want = velox_tpu.run_sql(SQL[6], ref_plans.load_query_tables(6, 0.01), tile_rows=1 << 13)
+    assert got.num_rows == 1
+    assert_same_rows(got, want)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            velox_tpu_torch.run_sql(SQL[6], tables)

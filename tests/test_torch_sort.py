@@ -22,6 +22,7 @@ from velox_tpu.vector.column import Batch as RefBatch
 from velox_tpu.vector.string_table import StringTable as RefStrings
 from velox_tpu_torch.exec import sort as port_sort
 from velox_tpu_torch.exec.runner import LocalExecutor as PortExecutor
+from velox_tpu_torch.exec.runner import QueryError as PortQueryError
 from velox_tpu_torch.plan import PlanBuilder as PortBuilder
 from velox_tpu_torch.plan.nodes import SortKey as PortKey
 from velox_tpu_torch.testing import table_from_numpy
@@ -49,8 +50,13 @@ def _cols(seed=0):
     return cols, validities
 
 
-def _tables():
+def _tables(sums_in_range=False):
+    """``sums_in_range``: the row holding int64's minimum takes that minimum
+    + 16, so that the one group whose sum(a) passed int64 (-2^63 - 16) sums
+    to -2^63 exactly: in range, where Presto (and the port) raise otherwise."""
     cols, validities = _cols()
+    if sums_in_range:
+        cols["a"][0] += 16
     port = table_from_numpy(
         _NAMES, ["BIGINT", "DOUBLE", "VARCHAR", "DATE", "BIGINT", "BIGINT"], cols, {"s": _WORDS}, validities
     )
@@ -240,8 +246,6 @@ def test_string_key_without_a_dictionary_falls_back_to_the_host_finisher():
     [(["total desc", "g"], 5), (["lo", "s desc"], 3), (["n desc", "sx"], 4), (["total"], 1000)],
 )
 def test_device_topn_over_aggregation_outputs(keys, k):
-    ref_t, port_t = _tables()
-
     def plan(builder, t):
         return (
             builder().table_scan(t)
@@ -249,6 +253,14 @@ def test_device_topn_over_aggregation_outputs(keys, k):
             .topn(keys, k)
             .build()
         )
+
+    # over _cols() as they are, one group's sum(a) is -2^63 - 16: Presto's
+    # overflow error, raised where the sum is finalised (the JAX package
+    # wraps it); the TopN is held on the same rows with that sum in range
+    _, overflowing = _tables()
+    with pytest.raises(PortQueryError, match="NUMERIC_VALUE_OUT_OF_RANGE"):
+        PortExecutor(plan(PortBuilder, overflowing), tile_rows=1 << 10, device="cpu").run()
+    ref_t, port_t = _tables(sums_in_range=True)
 
     ref = RefExecutor(plan(RefBuilder, ref_t), tile_rows=1 << 10)
     port = PortExecutor(plan(PortBuilder, port_t), tile_rows=1 << 10, device="cpu")

@@ -25,6 +25,7 @@ from velox_tpu_torch.config import QueryConfig as PortConfig
 from velox_tpu_torch.exec import grouping as port_grp
 from velox_tpu_torch.exec import runner as port_runner
 from velox_tpu_torch.exec.runner import AggExecutor as PortAgg, LocalExecutor as PortExecutor
+from velox_tpu_torch.exec.runner import QueryError as PortQueryError
 from velox_tpu_torch.plan import PlanBuilder as PortBuilder
 from velox_tpu_torch.testing import table_from_numpy
 from velox_tpu_torch.vector.column import Batch as PortBatch
@@ -332,21 +333,34 @@ def test_no_host_read_inside_the_tile_loop(monkeypatch):
 
 def test_wide_sum_limbs_through_the_carry():
     """Sums that pass int64 keep exact (hi, lo, count) limbs through run
-    reductions and carry merges."""
+    reductions and carry merges: the first two of four tiles hold values
+    near 2^62 whose partial sums a group pass int64 in the carry, the last
+    two their negations plus a small remainder, so every total is back in
+    range and comes out exact.  A total past int64 is Presto's overflow
+    error (``NUMERIC_VALUE_OUT_OF_RANGE``) where the sum is finalised; until
+    that check the port kept order and rounded such a total to float64."""
     n = 4096
     rng = np.random.default_rng(8)
-    k = rng.integers(0, 600, n).astype(np.int64)
-    u = rng.integers((1 << 62) - 1000, 1 << 62, n).astype(np.int64)
+    k_half = rng.integers(0, 600, n // 2).astype(np.int64)
+    u_half = rng.integers((1 << 62) - 1000, 1 << 62, n // 2).astype(np.int64)
+    k = np.concatenate([k_half, k_half])
+    u = np.concatenate([u_half, -u_half + rng.integers(-50, 50, n // 2)])
     port_t = table_from_numpy(["k", "u"], ["BIGINT", "BIGINT"], {"k": k, "u": u})
     plan = PortBuilder().table_scan(port_t).aggregation(["k"], ["sum(u) as s"]).orderby(["k"]).build()
     ex = PortExecutor(plan, tile_rows=1024, device="cpu")
     assert ex.agg_exec.aggs[0].acc_ops == ("sum", "sum", "sum")
     got = ex.run()
+    assert ex.carry_groups and not ex.carry_overflowed  # merged through the device carry
+    partial = [sum(int(v) for v in u_half[k_half == key]) for key in np.unique(k_half)]
+    assert max(partial) > np.iinfo(np.int64).max  # the carry held sums past int64
     exact = [sum(int(v) for v in u[k == key]) for key in np.unique(k)]
-    # past int64 the extraction keeps order and rounds to float64
-    np.testing.assert_allclose(np.asarray(got.columns["s"], dtype=np.float64), np.asarray(exact, dtype=np.float64), rtol=1e-15)
+    np.testing.assert_array_equal(np.asarray(got.columns["s"]), np.asarray(exact, dtype=np.int64))
     one = PortExecutor(plan, tile_rows=1 << 20, device="cpu").run()
     np.testing.assert_array_equal(np.asarray(one.columns["s"]), np.asarray(got.columns["s"]))
+    past = table_from_numpy(["k", "u"], ["BIGINT", "BIGINT"], {"k": k_half, "u": u_half})
+    plan = PortBuilder().table_scan(past).aggregation(["k"], ["sum(u) as s"]).orderby(["k"]).build()
+    with pytest.raises(PortQueryError, match="NUMERIC_VALUE_OUT_OF_RANGE"):
+        PortExecutor(plan, tile_rows=1024, device="cpu").run()
 
 
 def test_tile_partial_and_carry_merge_match_reference():

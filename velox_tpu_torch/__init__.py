@@ -47,6 +47,14 @@ from .functions import presto as _presto_functions  # noqa: F401  (registers fns
 from .functions import spark as _spark_functions  # noqa: E402,F401  (registers fns)
 
 
+def run_sql(sql, catalog, tile_rows=None, device=None):
+    """Plan and execute a SQL SELECT over host Tables (sql/planner.py);
+    ``device`` None = the CUDA device."""
+    from .sql.planner import run_sql as _run
+
+    return _run(sql, catalog, tile_rows, device=device)
+
+
 def run_plan(plan, tile_rows=1 << 20, device=None):
     """Execute a PlanNode (exec/runner.py); ``device`` None = the CUDA device."""
     from .exec.runner import run_plan as _run

@@ -31,6 +31,7 @@ import numpy as np
 
 from ...dtypes import RowType, VARCHAR
 from ...io.table import Table
+from ...parallel.shuffle_join import hash64_np
 from ...vector.string_table import StringTable
 from ..base import Connector, ConnectorSplit, DataSink, DataSource, register_connector
 
@@ -151,18 +152,6 @@ class HiveDataSource(DataSource):
             yield from pool.map(self._read_one, self.splits)
 
 
-def hash64_np(keys: np.ndarray) -> np.ndarray:
-    """Vectorized 64-bit mix (splitmix-style finalizer) of integer keys: the
-    bits of the JAX package's ``parallel/exchange.py hash64``, so a bucketed
-    write puts every row in the same bucket file as the JAX package does."""
-    x = keys.astype(np.uint64)
-    x = x * np.uint64(0x9E3779B97F4A7C15)
-    x = x ^ (x >> np.uint64(31))
-    x = x * np.uint64(0xBF58476D1CE4E5B9)
-    x = x ^ (x >> np.uint64(27))
-    return x
-
-
 def _partition_rows(table: Table, cols: Sequence[str]):
     """[(value texts, row indices in input order)] of every combination of
     the partition columns present in ``table``, sorted as tuples of the texts
@@ -215,6 +204,8 @@ class HiveDataSink(DataSink):
     def _bucket_split(self, table: Table):
         """Rows -> (bucket id, sub-table) by key hash (reference:
         HiveDataSink bucketed writes + HivePartitionFunction)."""
+        # the exchange's 64-bit mix (``parallel/exchange.py hash64``), as the
+        # JAX package's writer: every row lands in the same bucket file
         keys = np.zeros(table.num_rows, np.uint64)
         for col in self.bucket_by:
             keys ^= hash64_np(np.asarray(table.columns[col], np.int64))

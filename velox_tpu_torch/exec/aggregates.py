@@ -384,14 +384,30 @@ def _wide_exact(hi, lo):
 
 
 def _wide_sum_extract(accs):
+    """The exact sums as int64.  The result type (BIGINT or DECIMAL(18, s))
+    is int64-backed, so a sum outside int64 is Presto's overflow error
+    (NUMERIC_VALUE_OUT_OF_RANGE), checked here once, where the sum is
+    finalised; the JAX package returns the wrapped value instead."""
     exact = _wide_exact(accs[0], accs[1])
-    count = np.asarray(accs[2])
-    int64_max = (1 << 63) - 1
-    if len(exact) and max((abs(int(x)) for x in exact), default=0) > int64_max:
-        values = exact.astype(np.float64)  # beyond 64 bits: lossless order, lossy tail
-    else:
+    try:
         values = exact.astype(np.int64)
-    return values, count > 0
+    except OverflowError:
+        from .runner import QueryError
+
+        raise QueryError("NUMERIC_VALUE_OUT_OF_RANGE: sum overflows int64") from None
+    return values, np.asarray(accs[2]) > 0
+
+
+def check_wide_sums_in_range(accs, count: int) -> None:
+    """``_wide_sum_extract``'s overflow check on the device, over the first
+    ``count`` groups' (hi, lo, count) limbs: with lo carried into hi (lo is
+    a sum of non-negative 32-bit chunks), the exact sum hi * 2^32 + lo fits
+    int64 exactly when hi lies in [-2^31, 2^31)."""
+    hi = accs[0][:count] + (accs[1][:count] >> 32)
+    if not bool(((hi >= -(1 << 31)) & (hi < (1 << 31))).all()):
+        from .runner import QueryError
+
+        raise QueryError("NUMERIC_VALUE_OUT_OF_RANGE: sum overflows int64")
 
 
 def _scale(t: DataType) -> int:

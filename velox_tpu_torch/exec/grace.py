@@ -30,8 +30,8 @@ NULL keys ride partition 0 (they never match; the null-key rows of a FULL /
 LEFT join come out of partition 0).
 
 Recursion: an oversized partition enters this path again through the child
-executor's own pool, with a new salt taken from the new plan node ids — the
-analog of the reference's multi-level recursive spill
+executor's own pool, with a new salt taken from the join's id and its level
+(the number of partition filters already over its probe) — the analog of the reference's multi-level recursive spill
 (Spiller::state().maxPartitions per level).
 """
 
@@ -86,10 +86,24 @@ def _register_grace_hash():
     )
 
 
-def _salt_of(node: PlanNode) -> int:
-    """Deterministic per-join salt: recursion levels create new node ids, so
-    partitioning an oversized partition again uses an independent hash."""
-    return zlib.crc32(str(getattr(node, "id", "join")).encode()) or 1
+def _grace_level(node: HashJoinNode) -> int:
+    """How many Grace passes this join is already inside: each pass puts one
+    ``__grace_hash`` filter over the probe, and ``dataclasses.replace``
+    keeps the node's id, so the id alone does not tell the levels apart."""
+    level = 0
+    left = node.left
+    while isinstance(left, FilterNode) and "__grace_hash(" in left.predicate.key():
+        level += 1
+        left = left.source
+    return level
+
+
+def _salt_of(node: HashJoinNode) -> int:
+    """Deterministic per-join, per-level salt: partitioning an oversized
+    partition again (the next level) uses an independent hash, so its rows
+    spread over the new partitions instead of landing in one."""
+    key = f"{getattr(node, 'id', 'join')}/{_grace_level(node)}"
+    return zlib.crc32(key.encode()) or 1
 
 
 def _combined_hash_np(table: Table, keys, salt: int) -> np.ndarray:
@@ -174,7 +188,8 @@ def grace_join_table(
     probe and a ValuesNode build partition, run by a child LocalExecutor
     under its own memory pool (pressure there enters this path again).
     ``device`` None = the CUDA device.  ``report``, when given, receives P,
-    the salt, each partition's build and output rows, the partitions run
+    the salt, each partition's build and output rows (and the reports of the
+    Grace joins its own pass ran, when it had to split again), the partitions run
     without a budget (``no_progress``) and what the joined parts spilled."""
     from ..utils.testvalue import adjust
     from .memory import Spiller, no_spill, table_nbytes
@@ -240,8 +255,11 @@ def grace_join_table(
             adjust("LocalExecutor::graceNoProgress", node)
             no_progress.append(p)
             sub_config = config.copy(query_memory_limit_bytes=None)
-        part = LocalExecutor(sub, tile_rows, sub_config, device=device).run()
-        partitions.append(dict(build_rows=builds[p].num_rows, out_rows=part.num_rows))
+        child = LocalExecutor(sub, tile_rows, sub_config, device=device)
+        part = child.run()
+        # a partition that still did not fit split again: its own report
+        partitions.append(dict(build_rows=builds[p].num_rows, out_rows=part.num_rows,
+                               grace_joins=child.grace_joins))
         parts.append(part)
         acc += table_nbytes(part)
         if (

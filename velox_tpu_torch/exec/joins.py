@@ -181,6 +181,14 @@ class _NormalizedKey:
                 lo_arr += term
         return hi, lo_arr
 
+    def pack_device(self, key_values: Sequence[torch.Tensor], valid: torch.Tensor):
+        """Single-limb packed keys: (packed [cap] int64, in_range & valid);
+        out-of-range or invalid probe values cannot match any build row and
+        pack to -1 (callers check ``two_limb`` first)."""
+        assert not self.two_limb
+        (_, packed), ok = self.pack_device_limbs(key_values, valid)
+        return packed, ok
+
     def pack_device_limbs(self, key_values: Sequence[torch.Tensor], valid: torch.Tensor):
         """((hi|None, lo), in_range&valid); rows out of range or invalid pack
         to -1 in every limb."""
@@ -301,6 +309,10 @@ class HashJoinExec:
     bp_plan: Optional[object] = None
     bp_packed: Optional[torch.Tensor] = None
     bp_fields: Optional[Tuple] = None
+    # the fused probe emits build + probe rows; callers whose later shapes
+    # are sized to the probe batch's capacity (the distributed rank-local
+    # pipelines) turn it off and keep the capacity-preserving probe
+    allow_fused: bool = True
 
     probe_split_host = _not_ported("HashJoinExec.probe_split_host", "split dispatch")
 
@@ -970,7 +982,7 @@ class HashJoinExec:
         B = self.build_size
         if self.expansion or B == 0 or self.key_range is None:
             return None
-        if self.build_keys_hi is not None:
+        if self.build_keys_hi is not None or not self.allow_fused:
             return None
         left_schema = node.left.output_schema
         right_key_to_left = dict(zip(node.right_keys, node.left_keys))

@@ -105,7 +105,9 @@ from ..vector.string_table import StringTable
 from .aggregates import (
     BoundAggregate,
     _wide_normalize,
+    _wide_sum_extract,
     bind_aggregate,
+    check_wide_sums_in_range,
     narrow_int_avg,
     narrow_int_sum,
 )
@@ -1357,7 +1359,9 @@ def _sort_indices(table: Table, keys: Sequence[SortKey]) -> np.ndarray:
         arr = np.asarray(arr)
         if not key.ascending:
             if arr.dtype.kind in "iu":
-                arr = -arr.astype(np.int64)
+                # ~x = -x - 1 reverses the order without overflow: -x of
+                # int64's minimum is itself (the JAX package sorts it first)
+                arr = ~arr.astype(np.int64)
             else:
                 arr = -arr
         validity = table.validities.get(key.name)
@@ -2015,7 +2019,12 @@ class LocalExecutor:
         if topn is not None and count > topn[0]:
             # TopN over agg outputs: select the top-K groups ON DEVICE and
             # fetch only K rows (the fetch-result-sized discipline).  The
-            # host finisher re-sorts the K rows exactly afterwards.
+            # host finisher re-sorts the K rows exactly afterwards.  The
+            # groups it drops are finalised too: a wide sum past int64 in
+            # any of them is the query's overflow error
+            for agg, acc in zip(ex.aggs, accs_d):
+                if agg.extract_fn is _wide_sum_extract:
+                    check_wide_sums_in_range(acc, count)
             keys_d, accs_d = self._device_topn_select(topn, keys_d, accs_d, count)
             count = min(count, topn[0])
         flat = list(keys_d) + [a for acc in accs_d for a in acc]

@@ -49,7 +49,8 @@ import torch
 
 from ..dtypes import BIGINT, DOUBLE
 from ..expr.ir import Call, FieldAccess
-from ..ops.u64 import GOLDEN_GAMMA, signed64, srl64
+from ..ops.u64 import srl64
+from ..parallel.exchange import hash64  # the register hash: the exchange's 64-bit mix
 from ..plan.nodes import AggregationNode, PlanNode
 
 _M_REG = 2048  # registers (log2m = 11), reference default stderr ~2.3%
@@ -64,16 +65,6 @@ _SCALE = float(1 << 54)  # integer harmonic-term scale: w = 2^(54 - rho)
 _DD_ALPHA = 0.005
 _DD_GAMMA = (1.0 + _DD_ALPHA) / (1.0 - _DD_ALPHA)
 _DD_OFF = 1 << 21  # keeps positive-sign buckets positive for any magnitude
-
-
-def hash64(a: torch.Tensor) -> torch.Tensor:
-    """The register hash (the JAX package's parallel/exchange.hash64 mix: a
-    multiply by splitmix64's gamma, two xor-shift rounds) on int64 lanes: the
-    bits of the uint64 result."""
-    x = a * signed64(GOLDEN_GAMMA)
-    x = x ^ srl64(x, 31)
-    x = x * signed64(0xBF58476D1CE4E5B9)
-    return x ^ srl64(x, 27)
 
 
 def _bits_of(a: torch.Tensor) -> torch.Tensor:

@@ -42,12 +42,15 @@ from ..plan.nodes import (
     AggregationNode,
     AssignUniqueIdNode,
     EnforceSingleRowNode,
+    ExchangeNode,
     FilterNode,
     GroupIdNode,
     HashJoinNode,
     LimitNode,
+    LocalPartitionNode,
     MergeExchangeNode,
     OrderByNode,
+    PartitionedOutputNode,
     PlanNode,
     ProjectNode,
     TableScanNode,
@@ -621,6 +624,9 @@ def _rw(node: PlanNode) -> Tuple[PlanNode, Dict[str, RenderSpec]]:
         (
             LimitNode,
             EnforceSingleRowNode,
+            LocalPartitionNode,
+            PartitionedOutputNode,
+            ExchangeNode,
             AssignUniqueIdNode,
             UnionAllNode,
         ),

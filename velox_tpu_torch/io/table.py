@@ -84,6 +84,39 @@ class Table:
         out._bounds.update({n: b for n, b in self._bounds.items() if n in names})
         return out
 
+    @staticmethod
+    def concat(parts: Sequence["Table"]) -> "Table":
+        """Row-concatenate same-schema tables, unifying the parts' string
+        dictionaries into one (codes are remapped part by part); complex
+        columns raise NotImplementedError, as in the JAX package."""
+        parts = list(parts)
+        schema = parts[0].schema
+        for p in parts[1:]:
+            if p.schema != schema:
+                raise ValueError(f"Table.concat over different schemas: {schema} vs {p.schema}")
+        cols: Dict[str, np.ndarray] = {}
+        tables: Dict[str, StringTable] = {}
+        validities: Dict[str, np.ndarray] = {}
+        for name, dtype in zip(schema.names, schema.types):
+            if dtype.is_complex:
+                raise NotImplementedError("Table.concat over complex-typed columns")
+            if dtype.is_string:
+                st = StringTable()
+                chunks = []
+                for p in parts:
+                    remap = st.intern_all(list(p.string_tables[name].values()))
+                    chunks.append(np.asarray(remap)[np.asarray(p.columns[name])])
+                cols[name] = np.concatenate(chunks)
+                tables[name] = st
+            else:
+                cols[name] = np.concatenate([np.asarray(p.columns[name]) for p in parts])
+            if any(name in p.validities for p in parts):
+                validities[name] = np.concatenate([
+                    np.asarray(p.validities.get(name, np.ones(p.num_rows, dtype=bool)))
+                    for p in parts
+                ])
+        return Table(schema, cols, tables, validities)
+
     # ---- batch slicing ---------------------------------------------------
     def num_tiles(self, tile_rows: int) -> int:
         return max(1, -(-self.num_rows // tile_rows))

@@ -372,6 +372,44 @@ class HashJoinNode(PlanNode):
         self.output_schema = RowType(self.output_columns, types)
 
 
+class PartitionKind(str, Enum):
+    """Reference: PartitionedOutputNode kinds (PlanNode.h:1107-1109)."""
+
+    PARTITIONED = "partitioned"
+    BROADCAST = "broadcast"
+    ARBITRARY = "arbitrary"
+
+
+@dataclasses.dataclass
+class LocalPartitionNode(PlanNode):
+    """Intra-host repartition between pipelines (reference: PlanNode.h:1024)."""
+
+    source: PlanNode
+    keys: Tuple[str, ...]
+    num_partitions: int
+    id: str = dataclasses.field(default_factory=lambda: _next_id("localpart"))
+
+    def __post_init__(self):
+        self.sources = (self.source,)
+        self.output_schema = self.source.output_schema
+
+
+@dataclasses.dataclass
+class PartitionedOutputNode(PlanNode):
+    """Produce partitioned shards for the distributed exchange
+    (reference: PlanNode.h:857 Exchange + :1107 PartitionedOutput)."""
+
+    source: PlanNode
+    kind: PartitionKind
+    keys: Tuple[str, ...]
+    num_partitions: int
+    id: str = dataclasses.field(default_factory=lambda: _next_id("partout"))
+
+    def __post_init__(self):
+        self.sources = (self.source,)
+        self.output_schema = self.source.output_schema
+
+
 @dataclasses.dataclass
 class UnionAllNode(PlanNode):
     """Row-concatenation of same-schema inputs (reference: the UNION ALL
@@ -405,3 +443,15 @@ class MergeExchangeNode(PlanNode):
     def __post_init__(self):
         self.sources = tuple(self.inputs)
         self.output_schema = self.inputs[0].output_schema
+
+
+@dataclasses.dataclass
+class ExchangeNode(PlanNode):
+    """Consume a partitioned exchange (reference: PlanNode.h:857)."""
+
+    schema: RowType
+    id: str = dataclasses.field(default_factory=lambda: _next_id("exchange"))
+
+    def __post_init__(self):
+        self.sources = ()
+        self.output_schema = self.schema
