@@ -152,9 +152,9 @@ data is the same in every run.  The script
    and Q3 through ``to_substrait`` -> JSON -> ``from_substrait`` and runs
    them (rows equal to the direct plan's; Q1 launches K2 once a tile), and
    counts the TPC-H plans that convert; O1 runs ``collect_operator_stats``
-   and ``print_plan`` over Q6 (each operator's rows against numpy), reads
-   ``trace.status()`` and writes a ``torch.profiler`` trace through
-   ``trace.device_profile``;
+   and ``print_plan`` over Q6 (each operator's rows against numpy) and
+   writes a ``torch.profiler`` trace through ``trace.device_profile``, with
+   the card's kernels and the executor's ``velox.`` spans;
 17. runs the distributed slice (``distributed``: one line each) through
    ``parallel.runner.DistributedExecutor`` over 4 gloo ranks that share the
    card (``testing/world.py``; the tables written once as files the ranks
@@ -3059,9 +3059,8 @@ def _substrait_roundtrip(plan):
 
 def observability_o1(cache, tile_rows: int, device, workdir: str):
     """O1: collect_operator_stats + print_plan of Q6; each operator's rows
-    equal the numpy count at that step; trace.status() reads no outstanding
-    operation after the run; the profiler context writes a trace with the
-    card's kernels."""
+    equal the numpy count at that step; the profiler context writes a trace
+    with the card's kernels and the executor's spans."""
     import os
     import shutil
 
@@ -3074,11 +3073,8 @@ def observability_o1(cache, tile_rows: int, device, workdir: str):
 
     lineitem = cache.table("lineitem")
     plan = build_q6(lineitem)
-    with trace.trace_context("O1 collect_operator_stats"):
-        live = trace.status()
-        stats, stats_s = _timed(
-            lambda: collect_operator_stats(plan, tile_rows=tile_rows, device=device), device)
-    after = trace.status()
+    stats, stats_s = _timed(
+        lambda: collect_operator_stats(plan, tile_rows=tile_rows, device=device), device)
     c = lineitem.columns
     keep = ((c["l_shipdate"] >= 8766) & (c["l_shipdate"] < DAY_1995) & (c["l_discount"] >= 5)
             & (c["l_discount"] <= 7) & (c["l_quantity"] < 2400))
@@ -3088,7 +3084,6 @@ def observability_o1(cache, tile_rows: int, device, workdir: str):
     # aggregate's input keeps them all; one row comes out
     assert rows == [("TableScan", 0, passing), ("Project", passing, passing),
                     ("Aggregation", passing, 1)], rows
-    assert "live=1" in live and after == "(no outstanding operations)", (live, after)
     log_dir = os.path.join(workdir, "o1_profile")
     try:
         with trace.device_profile(log_dir):
@@ -3098,16 +3093,19 @@ def observability_o1(cache, tile_rows: int, device, workdir: str):
         with open(path) as f:
             events = json.load(f)["traceEvents"]
         kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        spans = sorted({e["name"] for e in events if e.get("cat") == "user_annotation"
+                        and str(e.get("name", "")).startswith(trace.PREFIX)})
         trace_bytes = os.path.getsize(path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     on_card = str(device).startswith("cuda")
     assert events and (kernels > 0 or not on_card), (len(events), kernels)
+    assert {"velox.construct", "velox.run", "velox.steps"} <= set(spans), spans
     return dict(line="O1", path="collect_operator_stats, print_plan, trace, device_profile",
                 operators=[dict(type=t, input_rows=i, output_rows=o,
                                 wall_s=s.wall_seconds) for (t, i, o), s in
                            zip(rows, stats.operators)],
-                plan_text=print_plan(plan, stats), stats_s=stats_s, status_after=after,
+                plan_text=print_plan(plan, stats), stats_s=stats_s, trace_spans=spans,
                 trace_events=len(events), trace_kernel_events=kernels, trace_bytes=trace_bytes,
                 correct=True)
 

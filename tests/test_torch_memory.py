@@ -29,7 +29,7 @@ from velox_tpu_torch.exec.memory import (
 from velox_tpu_torch.exec.runner import LocalExecutor
 from velox_tpu_torch.plan import PlanBuilder
 from velox_tpu_torch.testing import table_from_numpy
-from velox_tpu_torch.utils import testvalue
+from velox_tpu_torch.utils import reporter, testvalue
 
 
 def _pair(cols):
@@ -76,15 +76,19 @@ def test_arbitration_reclaims():
 
 def test_spiller_roundtrip(tmp_path):
     """Pages restore in spill order, and their bytes are the JAX package's
-    spiller's bytes for the same table."""
+    spiller's bytes for the same table; the reporter's spilled-bytes counter
+    grows by the bytes written."""
     ref_t, t = _pair({"k": np.arange(100), "v": np.arange(100) * 3})
     sp = Spiller(str(tmp_path / "port"))
     (tmp_path / "port").mkdir()
+    before = reporter.reporter().counter(reporter.METRIC_SPILLED_BYTES)
     sp.spill(t)
     sp.spill(t)
     assert sp.spilled_rows == 200
     report = sp.report()
     assert report["spill_files"] == 2 and report["spilled_bytes"] == sp.spilled_bytes
+    spilled = reporter.reporter().counter(reporter.METRIC_SPILLED_BYTES) - before
+    assert spilled == sp.spilled_bytes > 0
     back = list(sp.restore())
     assert len(back) == 2
     np.testing.assert_array_equal(back[0].columns["v"], t.columns["v"])

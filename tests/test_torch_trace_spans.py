@@ -1,0 +1,202 @@
+"""The port's spans (``velox_tpu_torch/utils/trace.py``) in a profiler's trace.
+
+A join whose build side is a filtered scan, a grouped aggregation and a TopN
+run under ``device_profile`` on the CPU: every span their path reaches is in
+the Chrome trace, each inside the span that opened it, and the rows are the
+rows of the same query run without a profiler.  A tile's span carries the
+bytes ``batch_bytes`` counts in it; the K2 span carries the launch's
+operands; with no profiler a span is one shared no-op that calls nothing.
+Imports nothing of the JAX package."""
+
+import json
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from velox_tpu_torch import dtypes as pt
+from velox_tpu_torch.exec.memory import batch_bytes
+from velox_tpu_torch.exec.runner import LocalExecutor
+from velox_tpu_torch.io.table import Table
+from velox_tpu_torch.ops.group_piece import Factor, grouped_piece_sums, plan_spec
+from velox_tpu_torch.plan import PlanBuilder
+from velox_tpu_torch.testing import table_from_numpy
+from velox_tpu_torch.utils import trace
+from velox_tpu_torch.vector.complex import HostSegments, HostStruct
+
+N_ORDERS, N_LINES = 3000, 20000
+NAME = re.compile(r"^velox\.([a-z0-9]+)(?:\[(.*)\])?$")
+
+
+def q3_shaped(tile_rows):
+    """Revenue of the orders of a segment by order, top 10: the build side
+    is a filtered scan of ``orders``, the probe a filtered scan of
+    ``lineitem``."""
+    rng = np.random.default_rng(14)
+    orders = table_from_numpy(
+        ["o_orderkey", "o_segment", "o_priority"], ["BIGINT"] * 3,
+        {"o_orderkey": np.arange(N_ORDERS, dtype=np.int64),
+         "o_segment": rng.integers(0, 5, N_ORDERS),
+         "o_priority": rng.integers(0, 3, N_ORDERS)},
+    )
+    lineitem = table_from_numpy(
+        ["l_orderkey", "l_price"], ["BIGINT"] * 2,
+        {"l_orderkey": rng.integers(0, N_ORDERS, N_LINES),
+         "l_price": rng.integers(1, 10_000, N_LINES)},
+    )
+    build = PlanBuilder().table_scan(orders, filter="o_segment = 2")
+    plan = (
+        PlanBuilder()
+        .table_scan(lineitem, filter="l_price > 100")
+        .hash_join(build, ["l_orderkey"], ["o_orderkey"],
+                   output=["l_orderkey", "l_price", "o_priority"])
+        .aggregation(["l_orderkey", "o_priority"], ["sum(l_price) as revenue"])
+        .topn(["revenue desc", "l_orderkey"], 10)
+        .build()
+    )
+    return plan, tile_rows
+
+
+def rows_of(table):
+    return list(zip(*(np.asarray(table.columns[n]).tolist() for n in table.schema.names)))
+
+
+def spans_in(log_dir):
+    """[(kind, counts, start, end)] of the trace's ``velox.`` spans, by start."""
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    out = []
+    for e in events:
+        if e.get("cat") != "user_annotation" or not str(e.get("name", "")).startswith("velox."):
+            continue
+        m = NAME.match(e["name"])
+        assert m, e["name"]
+        counts = dict(kv.split("=") for kv in m.group(2).split(",")) if m.group(2) else {}
+        out.append((m.group(1), counts, float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    return sorted(out, key=lambda s: (s[2], -s[3]))
+
+
+def inside(child, parents):
+    return any(p[2] <= child[2] and child[3] <= p[3] for p in parents)
+
+
+@pytest.mark.parametrize("tile_rows", [1 << 15, 1 << 12])
+def test_q3_shaped_plan_spans_nest(tmp_path, tile_rows):
+    """One tile, and several (the carry merge); every span of the path."""
+    plan, tile_rows = q3_shaped(tile_rows)
+    with trace.device_profile(str(tmp_path)):
+        LocalExecutor(plan, tile_rows=tile_rows, device="cpu").run()
+    spans = spans_in(str(tmp_path))
+    by = {k: [s for s in spans if s[0] == k] for k in {s[0] for s in spans}}
+    assert set(by) == {"construct", "build", "tile", "run", "steps", "aggregate", "sort", "fetch"}
+    # the query's executor and its build side's sub-executor
+    assert len(by["construct"]) == 2 and len(by["run"]) == 1
+    outer = [s for s in by["construct"] if not inside(s, by["build"])]
+    assert len(outer) == 1 and by["run"][0][2] >= outer[0][3]
+    assert all(inside(s, outer) for s in by["build"])
+    # the sub-executor's construction lies inside the build side it runs
+    assert all(inside(s, by["build"]) for s in by["construct"] if s is not outer[0])
+    work = by["build"] + by["run"]
+    for kind in ("tile", "steps", "fetch"):
+        assert all(inside(s, work) for s in by[kind]), kind
+    for kind in ("aggregate", "sort"):
+        assert all(inside(s, by["run"]) for s in by[kind]), kind
+    n_probe_tiles = -(-N_LINES // tile_rows)
+    probe_tiles = [s for s in by["tile"] if inside(s, by["run"])]
+    assert len(probe_tiles) == n_probe_tiles
+    # a tile, its steps and its aggregation, tile after tile
+    assert len([s for s in by["aggregate"] if inside(s, by["run"])]) >= n_probe_tiles
+    # properly nested: two spans either nest or do not meet
+    for i, a in enumerate(spans):
+        for b in spans[i + 1:]:
+            assert b[2] >= a[3] or b[3] <= a[3], (a, b)
+
+
+def test_rows_are_the_same_with_and_without_a_profiler(tmp_path):
+    plan, tile_rows = q3_shaped(1 << 12)
+    plain = rows_of(LocalExecutor(plan, tile_rows=tile_rows, device="cpu").run())
+    with trace.device_profile(str(tmp_path)):
+        traced = rows_of(LocalExecutor(plan, tile_rows=tile_rows, device="cpu").run())
+    assert traced == plain and len(plain) == 10
+    revenue = [r[2] for r in plain]
+    assert revenue == sorted(revenue, reverse=True)
+
+
+def _tables():
+    """Host tables of every kind of column a tile uploads."""
+    n = 1000
+    rng = np.random.default_rng(3)
+    narrow = table_from_numpy(
+        ["a", "b", "c"], ["BIGINT", "INTEGER", "DATE"],
+        {"a": rng.integers(0, 100, n), "b": rng.integers(-30000, 30000, n).astype(np.int32),
+         "c": rng.integers(8000, 9000, n).astype(np.int32)},
+    )
+    mixed = table_from_numpy(
+        ["s", "d", "x", "w"], ["VARCHAR", "DOUBLE", "DECIMAL(12, 2)", "DECIMAL(30, 2)"],
+        {"s": rng.integers(0, 3, n).astype(np.int32), "d": rng.random(n),
+         "x": rng.integers(0, 10**9, n), "w": rng.integers(0, 10**9, (n, 2))},
+        string_values={"s": ["", "p", "q"]},
+        validities={"d": rng.random(n) < 0.9, "s": rng.random(n) < 0.5},
+    )
+    at, rt = pt.array(pt.BIGINT), pt.row(["f", "g"], [pt.BIGINT, pt.VARCHAR])
+    seg, seg_valid = HostSegments.from_pylist([[i, i + 1] if i % 7 else None for i in range(n)], at)
+    st, st_valid = HostStruct.from_pylist([{"f": i, "g": "z"} for i in range(n)], rt)
+    complex_ = Table(pt.RowType(["arr", "rec"], [at, rt]), {"arr": seg, "rec": st},
+                     validities={"arr": seg_valid, "rec": st_valid})
+    return {"narrow": narrow, "mixed": mixed, "complex": complex_}
+
+
+@pytest.mark.parametrize("kind", ["narrow", "mixed", "complex"])
+def test_tile_span_bytes_are_batch_bytes(tmp_path, kind):
+    table = _tables()[kind]
+    tile_rows = 384  # a padded last tile
+    with trace.device_profile(str(tmp_path)):
+        tiles = list(table.tiles(tile_rows, "cpu"))
+    want = [batch_bytes([t]) for t in tiles]
+    spans = [s for s in spans_in(str(tmp_path)) if s[0] == "tile"]
+    assert [int(s[1]["bytes"]) for s in spans] == want
+    assert want == [table.tile_bytes(tile_rows)] * table.num_tiles(tile_rows)
+
+
+def test_no_profiler_no_span():
+    def counts():
+        raise AssertionError("counts called with no profiler recording")
+
+    assert not torch.autograd._profiler_enabled()
+    first, second = trace.span("tile", counts), trace.span("run")
+    assert first is second
+    with first:
+        with second:  # the shared no-op nests in itself
+            pass
+
+
+def test_span_name_form(tmp_path):
+    seen = []
+    with trace.device_profile(str(tmp_path)):
+        with trace.span("tile", lambda: seen.append(1) or {"bytes": 123456}):
+            pass
+        with trace.span("k2", lambda: {"rows": 8, "widths": [1, 4], "specs": 2, "groups": 3}):
+            pass
+    names = [(s[0], s[1]) for s in spans_in(str(tmp_path))]
+    assert names == [("tile", {"bytes": "123456"}),
+                     ("k2", {"rows": "8", "widths": "1/4", "specs": "2", "groups": "3"})]
+    assert seen == [1]
+    assert trace.span_name("k2", {"rows": 8, "widths": (1, 4)}) == "velox.k2[rows=8,widths=1/4]"
+
+
+@pytest.mark.parametrize("dtypes", [(torch.int8, torch.int16, torch.int8), (torch.int32, torch.int32)])
+def test_k2_span_holds_its_operands(tmp_path, dtypes):
+    rows, groups = 5000, 6
+    g = torch.Generator().manual_seed(5)
+    cols = [torch.randint(0, 100, (rows,), generator=g).to(d) for d in dtypes]
+    gid = torch.randint(-1, groups, (rows,), generator=g).to(torch.int32)
+    plans = [plan_spec(f) for f in ([], [Factor(0, 1, 0, 0, 99)],
+                                     [Factor(0, 2, 1, 1, 199), Factor(1, 1, 0, 0, 99)])]
+    with trace.device_profile(str(tmp_path)):
+        grouped_piece_sums(cols, gid, plans, groups)
+    [span] = [s for s in spans_in(str(tmp_path)) if s[0] == "k2"]
+    widths = [t.element_size() for t in (*cols, gid)]
+    assert span[1] == {"rows": str(rows), "widths": "/".join(map(str, widths)),
+                       "specs": str(len(plans)), "groups": str(groups)}

@@ -208,6 +208,7 @@ class Spiller:
 
     def spill(self, table: Table) -> None:
         from ..serde.page import serialize_page
+        from ..utils import reporter
         from ..utils.testvalue import adjust
 
         adjust("Spiller::spill", table)
@@ -218,6 +219,7 @@ class Spiller:
             f.write(buf)
         self.files.append(path)
         self.spilled_bytes += len(buf)
+        reporter.increment_counter(reporter.METRIC_SPILLED_BYTES, len(buf))
         self.spilled_rows += table.num_rows
         self.spill_seconds += time.perf_counter() - t0
 

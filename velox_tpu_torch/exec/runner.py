@@ -99,6 +99,7 @@ from ..plan.nodes import (
 from ..ops.compact import compact
 from ..utils import reporter as _rep
 from ..utils.testvalue import adjust
+from ..utils.trace import span, spanned
 from ..utils.transfer import bucket_of, fetch_prefix, fetch_tree
 from ..vector.column import Batch, Column, Encoding, _take_clamped
 from ..vector.string_table import StringTable
@@ -580,6 +581,7 @@ def _pipeline_sort_keys(steps) -> Tuple[str, ...]:
 # Streaming operator application
 
 
+@spanned("steps")
 def apply_streaming(batch: Batch, steps: Sequence[Tuple]):
     """Apply filter / project / join-probe steps; returns (batch,
     error_count_on_live_rows) with the count a 0-d int64 tensor on the batch's
@@ -966,6 +968,7 @@ class AggExecutor:
             new_accs.append(agg._combine_states(acc, news))
         return (tuple(new_accs), rowcounts)
 
+    @spanned("aggregate")
     def update_carry(self, carry, batch: Batch, scan_batch: Optional[Batch] = None):
         """One tile's update of the direct-mode accumulators.
 
@@ -1029,6 +1032,7 @@ class AggExecutor:
         key_arrays = SortGrouping.group_keys(sorted_keys, runs)
         return key_arrays, tuple(accs_out), runs.num_runs
 
+    @spanned("aggregate")
     def tile_partial(self, batch: Batch):
         """Returns (key_arrays, accs_nested, num_groups_scalar)."""
         mask = batch.active_mask()
@@ -1067,6 +1071,7 @@ class AggExecutor:
         overflow = torch.zeros((), dtype=torch.int32, device=device)
         return (keys, accs, count, overflow)
 
+    @spanned("aggregate")
     def merge_partial_into_carry(self, carry, partial):
         """Merge one partial-groups tuple into the carry.  The partial's third
         element is either a run-count scalar (slots [0, n) valid) or an
@@ -1142,6 +1147,7 @@ class AggExecutor:
         return (new_keys, tuple(new_accs), new_count, overflow)
 
     # ---- host-exact final merge for sort mode -----------------------------
+    @spanned("aggregate")
     def merge_partials_host(self, key_chunks, acc_chunks):
         """key_chunks: list over tiles of list-per-key numpy arrays;
         acc_chunks: list over tiles of nested accs as numpy arrays."""
@@ -1457,6 +1463,7 @@ class LocalExecutor:
     _write_sink_factory = None
     _tw_merge = False
 
+    @spanned("construct")
     def __init__(
         self,
         root: PlanNode,
@@ -1529,7 +1536,8 @@ class LocalExecutor:
             # nullability) describes the rows they will see: UNION ALL merges
             # the inputs' dictionaries, a window adds columns
             t0 = time.perf_counter()
-            values = ValuesNode(self._materialize_source(lin.source), id=lin.source.id)
+            with span("build"):
+                values = ValuesNode(self._materialize_source(lin.source), id=lin.source.id)
             self.build_seconds += time.perf_counter() - t0
             root = _replace_plan_node(root, lin.source, values)
             lin = _linearize(root)
@@ -1543,19 +1551,20 @@ class LocalExecutor:
             t0 = time.perf_counter()
             node = step[1]
             try:
-                sub = self._sub_executor(node.right)
-                # a FULL join's build is the host's: it keeps the null-key
-                # rows and the right key columns for the unmatched-build tail
-                built = None if node.join_type == JoinType.FULL else sub.run_device()
-                exec_ = None
-                if built is not None:
-                    # build data stays in device memory end to end
-                    try:
-                        exec_ = HashJoinExec.build_from_device(node, *built)
-                    except DuplicateBuildKeys:
-                        pass  # N:M build: the host path below constructs the per-key runs
-                if exec_ is None:
-                    exec_ = HashJoinExec.build(node, sub.run(), device=self.device)
+                with span("build"):
+                    sub = self._sub_executor(node.right)
+                    # a FULL join's build is the host's: it keeps the null-key
+                    # rows and the right key columns for the unmatched-build tail
+                    built = None if node.join_type == JoinType.FULL else sub.run_device()
+                    exec_ = None
+                    if built is not None:
+                        # build data stays in device memory end to end
+                        try:
+                            exec_ = HashJoinExec.build_from_device(node, *built)
+                        except DuplicateBuildKeys:
+                            pass  # N:M build: the host path below constructs the per-key runs
+                    if exec_ is None:
+                        exec_ = HashJoinExec.build(node, sub.run(), device=self.device)
                 self._absorb(sub)
                 self.pool.reserve(exec_.state_bytes())
             except MemoryPoolError:
@@ -1690,11 +1699,12 @@ class LocalExecutor:
 
         self.pool.detach()
         t0 = time.perf_counter()
-        build_table = LocalExecutor(node.right, tile_rows, config, device=self.device).run()
         report: dict = {}
-        merged = grace_join_table(
-            node, build_table, tile_rows, self.config, device=self.device, report=report
-        )
+        with span("build"):
+            build_table = LocalExecutor(node.right, tile_rows, config, device=self.device).run()
+            merged = grace_join_table(
+                node, build_table, tile_rows, self.config, device=self.device, report=report
+            )
         build_s = time.perf_counter() - t0
         new_root = _replace_plan_node(self.root, node, ValuesNode(merged, id=node.id))
         self.__init__(new_root, tile_rows, config, pool=None, device=self.device)
@@ -1715,6 +1725,7 @@ class LocalExecutor:
                 (sub.kind, sub.carry_groups, sub.carry_overflowed, sub.groups_out)
             )
 
+    @spanned("build")
     def _run_sub(self, node: PlanNode) -> Table:
         sub = self._sub_executor(node)
         table = sub.run()
@@ -1879,6 +1890,7 @@ class LocalExecutor:
         self._pending_errs = []
         return total
 
+    @spanned("run")
     def run(
         self,
         prefetched_tiles: Optional[List[Batch]] = None,
@@ -2080,6 +2092,7 @@ class LocalExecutor:
         self._device_topn = (node.count, tuple(plan))
         return self._device_topn
 
+    @spanned("sort")
     def _device_topn_select(self, topn, keys_d, accs_d, count: int):
         """The K best of the first ``count`` carry slots, by the TopN's keys:
         order-preserving int64 operands, one stable sort each from the last
@@ -2341,7 +2354,8 @@ class LocalExecutor:
         try:
             for tile in make_tiles():
                 batch2, err = apply_streaming(tile, self.lin.steps)
-                arrays, layout, count = tile_sorted_prefix(spec, batch2, tile_keep)
+                with span("sort"):
+                    arrays, layout, count = tile_sorted_prefix(spec, batch2, tile_keep)
                 strings.update(_batch_strings(batch2))
                 chunks.append(arrays)
                 layouts.append(layout)
@@ -2382,7 +2396,8 @@ class LocalExecutor:
         if len(chunks) == 1:
             flat, live_d = chunks[0], counts[0]
         else:
-            flat, live_d = merge_sorted_chunks(spec, chunks, counts, layout, keep)
+            with span("sort"):
+                flat, live_d = merge_sorted_chunks(spec, chunks, counts, layout, keep)
         live, errs_np = fetch_tree((live_d, errs))
         n = int(live) if keep is None else min(int(live), keep)
         arrays = fetch_prefix(list(flat), n)

@@ -25,6 +25,7 @@ import torch
 
 from ..device import resolve_device
 from ..dtypes import DataType, RowType, TypeKind
+from ..utils.trace import span
 from ..vector.column import Batch, Column
 from ..vector.string_table import StringTable
 
@@ -143,6 +144,23 @@ class Table:
                 break
         return have
 
+    def tile_bytes(self, tile_rows: int) -> int:
+        """The bytes ``exec/memory.py batch_bytes`` counts in every tile of
+        ``tile_rows`` rows: a tile is padded to ``tile_rows``, and a column's
+        upload width and validity are the same in each tile."""
+        total = 0
+        for name, dtype in zip(self.schema.names, self.schema.types):
+            if dtype.is_complex:
+                # an ARRAY's or MAP's spans [rows, 2] of int64, a ROW's int8
+                # placeholder (the child pools are not counted)
+                width = 16 if dtype.kind in (TypeKind.ARRAY, TypeKind.MAP) else 1
+            else:
+                arr = np.asarray(self.columns[name])
+                narrow = self._narrow_dtype(name, dtype, arr)
+                width = Column.host_dtype(narrow, dtype).itemsize * int(np.prod(arr.shape[1:]))
+            total += tile_rows * (width + (self.validities.get(name) is not None))
+        return total
+
     def tile(self, index: int, tile_rows: int, device=None) -> Batch:
         """Materialize tile ``index`` as a fixed-capacity Batch (zero-padded)
         on ``device`` (None = the CUDA device).
@@ -153,9 +171,13 @@ class Table:
         kernel reads scale with the data's true range, not its declared type.
         Reference analog: the selective readers' narrow decode paths
         (dwio/common/SelectiveColumnReader.h).  On CUDA the tile is staged in
-        pinned memory and copied with ``non_blocking=True``.
+        pinned memory and copied with ``non_blocking=True``.  The trace's
+        ``velox.tile`` span holds the tile's bytes (``tile_bytes``).
         """
-        device = resolve_device(device)
+        with span("tile", lambda: {"bytes": self.tile_bytes(tile_rows)}):
+            return self._tile(index, tile_rows, resolve_device(device))
+
+    def _tile(self, index: int, tile_rows: int, device: torch.device) -> Batch:
         start = index * tile_rows
         stop = min(start + tile_rows, self.num_rows)
         n = max(0, stop - start)

@@ -55,6 +55,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from . import launch_geometry
 
 PIECE_MAX = (1 << 17) - 1
@@ -204,11 +205,21 @@ def grouped_piece_sums(
     cols = tuple(cols)
     plans = tuple(plans)
     _check_inputs(cols, gid_live, plans, num_groups)
-    if gid_live.device.type == "cpu":
-        return grouped_piece_sums_plain(cols, gid_live, plans, num_groups)
-    if gid_live.device.type != "cuda":
-        raise ValueError(f"unsupported device {gid_live.device}")
+    # the operands that set the bytes a launch moves, in the trace
+    operands = lambda: dict(  # noqa: E731
+        rows=gid_live.shape[0], widths=[t.element_size() for t in (*cols, gid_live)],
+        specs=len(plans), groups=num_groups,
+    )
+    with span("k2", operands):
+        if gid_live.device.type == "cpu":
+            return grouped_piece_sums_plain(cols, gid_live, plans, num_groups)
+        if gid_live.device.type != "cuda":
+            raise ValueError(f"unsupported device {gid_live.device}")
+        return _launch(cols, gid_live, plans, num_groups)
 
+
+def _launch(cols, gid_live, plans, num_groups) -> List[torch.Tensor]:
+    """One launch of the CUDA kernel over checked operands."""
     from . import cuda_build
 
     lib = cuda_build.library()

@@ -10,19 +10,26 @@ from __future__ import annotations
 
 import torch
 
+from .trace import span, spanned
+
 
 def fetch_tree(tree):
     """Fetch every tensor in a nested tuple/list/dict as a numpy array; other
     leaves pass through.  The first copy waits for the stream; the rest are
     already complete."""
+    with span("fetch"):
+        return _fetch(tree)
+
+
+def _fetch(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     if isinstance(tree, tuple):
-        return tuple(fetch_tree(t) for t in tree)
+        return tuple(_fetch(t) for t in tree)
     if isinstance(tree, list):
-        return [fetch_tree(t) for t in tree]
+        return [_fetch(t) for t in tree]
     if isinstance(tree, dict):
-        return {k: fetch_tree(v) for k, v in tree.items()}
+        return {k: _fetch(v) for k, v in tree.items()}
     return tree
 
 
@@ -34,6 +41,7 @@ def bucket_of(n: int) -> int:
     return b
 
 
+@spanned("fetch")
 def fetch_prefix(arrays, n: int):
     """Fetch the first ``n`` rows of same-length device tensors as numpy
     arrays: the slice is cut on the device, so the bytes copied scale with
@@ -41,4 +49,4 @@ def fetch_prefix(arrays, n: int):
     to a power-of-two bucket first so that its compiled slicers are few; an
     eager slice needs no bucket.)"""
     n = max(int(n), 0)
-    return [fetch_tree(a[:n]) for a in arrays]
+    return [_fetch(a[:n]) for a in arrays]

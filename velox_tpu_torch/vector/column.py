@@ -314,22 +314,28 @@ class Column:
             )
             arr, strings = codes, table
         np_arr = np.asarray(arr)
-        want = dtype.numpy_dtype
-        if not (
-            not dtype.is_string
-            and np_arr.dtype.kind in ("i", "u", "b")
-            and want.kind == "i"
-            and np_arr.itemsize <= want.itemsize
-        ) and np_arr.dtype != want:
-            # anything but a narrow integer upload converts on the host;
-            # narrow integers ship as they are and decode() widens them
-            np_arr = np_arr.astype(want, copy=False)
+        np_arr = np_arr.astype(Column.host_dtype(np_arr.dtype, dtype), copy=False)
         data = _host_tensor(np_arr)
         v = None
         if validity is not None:
             v = _host_tensor(np.asarray(validity, dtype=np.bool_))
         col = Column.flat(data, dtype, v, strings)
         return col if device is None else col.to(device)
+
+    @staticmethod
+    def host_dtype(have: np.dtype, dtype: DataType) -> np.dtype:
+        """The dtype ``from_numpy`` keeps an array of dtype ``have`` in:
+        anything but a narrow integer upload converts on the host; narrow
+        integers ship as they are and decode() widens them."""
+        want = dtype.numpy_dtype
+        if (
+            not dtype.is_string
+            and have.kind in ("i", "u", "b")
+            and want.kind == "i"
+            and have.itemsize <= want.itemsize
+        ):
+            return have
+        return want
 
     def to_numpy(self, length: int, decode_strings: bool = True):
         """Materialize the first ``length`` rows on the host.
