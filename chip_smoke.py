@@ -21,10 +21,16 @@ data is the same in every run.  The script
    tile with 1, 4, 12 and 64 live groups;
 4. sets every kernel's launch count to 0 and drives the main path once:
    TPC-H Q6 and Q1 at SF ``sf`` through ``LocalExecutor`` over device-resident
-   tiles, row-exact against the numpy oracle, and the two ops the executor
-   does not call (``selective_sum``, ``grouped_int64_sums``) through their own
-   entry points over the same tiles, checked against the same answers; then
-   reads the counts and fails if any kernel was not launched;
+   tiles, row-exact against the numpy oracle, and ``selective_sum`` (which
+   the executor does not call) and ``grouped_int64_sums`` (which Q1 and Q6
+   do not reach: the executor sends direct-mode int64 sums to it only off
+   the piece path) through their own entry points over the same tiles,
+   checked against the same answers; then Q12 at SF ``sf`` the same way,
+   whose array-mode aggregation after its join sends each int64 accumulator
+   to ``grouped_int64_sums`` (7 launches a tile, each call held bit for bit
+   against the plain version); then reads the counts and fails if any
+   kernel was not launched, and times K3 at Q12's shape (one column of the
+   joined batch, 7 groups, nearly every row dead) for the kernels line;
 5. times Q6 and Q1 (median of ``--runs``), with the device-busy share from
    ``torch.profiler``;
 6. times the primitives the sort-mode paths are made of (``torch.sort``,
@@ -72,8 +78,9 @@ data is the same in every run.  The script
    ``topn_row_number``; W3, W4, F2 and the two plans at SF 1 when ``--sf``
    is larger, ``WINDOW_AT_SF1``), each row-exact against its numpy oracle, with the
    window passes, the device's peak memory and ``query_ms`` (the checked
-   run of the whole query from host tables); none of them launches a
-   hand-written kernel;
+   run of the whole query from host tables); none of them launches K2 or
+   ``selective_sum``, and a direct-mode int64 sum launches K3
+   (``k3_launches``);
 10. runs the function slice (``tpch_functions``: one line each) over the
    same tables: the SQL texts of ``FUNCTION_SQL`` (A1, every new aggregate
    in direct mode over ``lineitem``; A2, five of them in sort mode over its
@@ -87,7 +94,8 @@ data is the same in every run.  The script
    into the host merge; A1, S1 and A2 at SF 1 in tiles of 2^21 rows, and W5
    at SF 1 in one tile, when ``--sf`` is larger, ``FUNCTION_AT_SF1``), each
    row-exact against its numpy oracle (``function_oracle``) and timed like
-   the window slice; none of them launches a hand-written kernel;
+   the window slice; none of them launches K2 or ``selective_sum``, and the
+   direct-mode int64 sums of A1 and D1 launch K3 (``k3_launches``);
 11. runs the complex-type slice (``tpch_complex``: one line each) over the
    same tables: the SQL texts of ``COMPLEX_SQL`` and the plans of
    ``complex_plan`` (C1, four collect aggregates over every ``orders`` row;
@@ -98,7 +106,7 @@ data is the same in every run.  The script
    and C7 at SF 1 when ``--sf`` is larger, ``COMPLEX_AT_SF1``), each against
    its numpy oracle (``check_complex``), with its largest element pool, its
    render time and the path it is there for (asserted); none of them
-   launches a hand-written kernel;
+   launches K2 or ``selective_sum`` (``k3_launches`` counts K3's);
 12. runs the sketch / Spark slice (``spark_sketch``: one line each) over the
    same tables: ``SPARK_SQL`` and ``spark_plan`` (H1 and H2, approx_distinct
    through the HLL rewrite, grouped and over a DOUBLE's bits; P1, a median by
@@ -3418,7 +3426,7 @@ def check_kernels(ex1, tile1, tile6, runs: int):
     b_ms, b_by = bound(k1_bytes, 9 * n)
     records.append(
         dict(
-            name="selective_sum", route="cuda",
+            name="selective_sum", shape="q6 tile", route="cuda",
             source="velox_tpu_torch/csrc/kernels.cu",
             replaces="velox_tpu/ops/pallas_kernels.py:107",
             max_abs_err=err,
@@ -3445,7 +3453,7 @@ def check_kernels(ex1, tile1, tile6, runs: int):
     b_ms, b_by = bound(moved, ops)
     records.append(
         dict(
-            name="grouped_piece_sums", route="cuda",
+            name="grouped_piece_sums", shape="q1 tile", route="cuda",
             source="velox_tpu_torch/csrc/grouped_piece_sums.cu",
             replaces="velox_tpu/ops/pallas_group_piece.py:235",
             max_abs_err=err,
@@ -3479,7 +3487,7 @@ def check_kernels(ex1, tile1, tile6, runs: int):
     assert torch.equal(lib()[:groups].t().contiguous(), torch.stack(list(want)))
     records.append(
         dict(
-            name="grouped_int64_sums", route="cuda",
+            name="grouped_int64_sums", shape="q1 tile, 4 int64 columns", route="cuda",
             source="velox_tpu_torch/csrc/grouped_int64_sums.cu",
             replaces="velox_tpu/ops/pallas_group_sum.py:139",
             max_abs_err=err,
@@ -3573,9 +3581,17 @@ def contention_sweep(ex1, tile1, runs: int):
     return out
 
 
+def launches_but_k3(wrappers):
+    """The launch counts of the hand-written kernels other than
+    ``grouped_int64_sums``, which every direct-mode int64 sum on the card
+    takes (ops/segmented.py ``direct_group_reduce``)."""
+    return {name: w.launches for name, w in wrappers.items() if name != "grouped_int64_sums"}
+
+
 def drive_ops(tiles6, ex1, tiles1, q1_result, q6_exact: int):
-    """The two ops the executor does not call, through their own entry points
-    over all tiles, held against the queries' answers."""
+    """selective_sum, which the executor does not call, and
+    grouped_int64_sums over Q1's columns, through their own entry points over
+    all tiles, held against the queries' answers."""
     import numpy as np
     import torch
 
@@ -3601,6 +3617,79 @@ def drive_ops(tiles6, ex1, tiles1, q1_result, q6_exact: int):
         want = np.sort(np.asarray(q1_result.columns[name], dtype=np.int64))
         assert np.array_equal(np.sort(got), want), (name, got, want)
     return count
+
+
+def drive_q12(cache, tile_rows: int):
+    """Q12 at the cache's scale factor through ``LocalExecutor`` over
+    device-resident tiles, row-exact against the numpy oracle.  It groups by
+    ship mode in array mode after its join, off the piece path, so each of a
+    tile's int64 accumulators is one call of ``grouped_int64_sums`` over the
+    joined batch.  Every call the run makes is held bit for bit against
+    ``grouped_int64_sums_plain``; a copy of the first call's operands is
+    kept.  Returns (K3 launches of the run, tiles, the kept operands)."""
+    import types
+
+    from velox_tpu_torch.ops import group_sum, segmented
+
+    ex, tiles, tables, rep = prepare_query(12, cache.sf, tile_rows, cache)
+    assert rep["kind"] == "direct_agg" and rep["piece_path"] is False, rep
+    real = group_sum.grouped_int64_sums
+    kept = []
+
+    def checked(cols, gids, mask, num_groups):
+        got = real(cols, gids, mask, num_groups)
+        want = group_sum.grouped_int64_sums_plain(cols, gids, mask, num_groups)
+        assert equal_bits(got, want), ("grouped_int64_sums disagrees in Q12", num_groups)
+        if not kept:
+            kept.append((tuple(c.clone() for c in cols), gids.clone(), mask.clone(),
+                         num_groups))
+        return got
+
+    before = real.launches
+    # direct_group_reduce reaches the kernel through its module's name
+    segmented.group_sum = types.SimpleNamespace(
+        grouped_int64_sums=checked, MAX_TABLE_BYTES=group_sum.MAX_TABLE_BYTES
+    )
+    try:
+        check_result(12, ex, tiles, tables)
+    finally:
+        segmented.group_sum = group_sum
+    [(cols, gids, mask, groups)] = kept
+    assert len(cols) == 1 and groups == ex.agg_exec.num_groups, (len(cols), groups)
+    return real.launches - before, len(tiles), kept[0]
+
+
+def k3_at_q12_record(operands, runs: int, launches: int):
+    """The kernels line's record of ``grouped_int64_sums`` at the shape Q12's
+    executor gives it, timed against the plain version (the ``index_add_``
+    that direct_group_reduce ran before the kernel took these sums)."""
+    import torch
+
+    from velox_tpu_torch.ops.group_sum import grouped_int64_sums, grouped_int64_sums_plain
+
+    cols, gids, mask, groups = operands
+    got = grouped_int64_sums(cols, gids, mask, groups)
+    want = grouped_int64_sums_plain(cols, gids, mask, groups)
+    torch.cuda.synchronize()
+    assert equal_bits(got, want), ("grouped_int64_sums disagrees at Q12's shape", got, want)
+    n = gids.shape[0]
+    live = int((mask & (gids >= 0) & (gids < groups)).sum())
+    assert 0 < live * 20 < n, (live, n)  # nearly every row of the joined batch is dead
+    moved = tensor_bytes(*cols, gids, mask) + 8 * groups * len(cols)
+    b_ms, b_by = bound(moved, live * len(cols))
+    record = dict(
+        name="grouped_int64_sums", shape="q12 joined batch, 1 int64 column", route="cuda",
+        source="velox_tpu_torch/csrc/grouped_int64_sums.cu",
+        replaces="velox_tpu/ops/pallas_group_sum.py:139",
+        max_abs_err=0,
+        ms=median_ms(lambda: grouped_int64_sums(cols, gids, mask, groups), runs),
+        plain_ms=median_ms(lambda: grouped_int64_sums_plain(cols, gids, mask, groups), runs),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        rows=n, live_rows=live, bytes=moved, columns=len(cols), groups=groups,
+        geometry=grouped_int64_sums.last_geometry.summary(), launches=launches,
+    )
+    record["share_of_bound"] = record["bound_ms"] / record["ms"]
+    return record
 
 
 class TpchTables:
@@ -4059,9 +4148,6 @@ def main() -> int:
     assert rep1["piece_path"] is True and rep6["piece_path"] is False, (rep1, rep6)
 
     records = check_kernels(ex1, tiles1[0], tiles6[0], args.runs)
-    for r in records:
-        r["bound_ms_at_measured_bandwidth"] = r["bytes"] / bw * 1e3
-    say("kernels", kernel_names=[r["name"] for r in records], records=records)
     say("edges", cases="[name, R, stages, chunk_rows, head, body_rows, tail, smem_bytes]",
         **check_edges())
     say("live_groups", **contention_sweep(ex1, tiles1[0], args.runs))
@@ -4074,14 +4160,29 @@ def main() -> int:
     oracles = {6: want6, 1: want1}  # the SQL texts are held against these too
     q6_exact = int(result6.columns["revenue"][0])  # unscaled DECIMAL(18,4)
     passing = drive_ops(tiles6, ex1, tiles1, result1, q6_exact)
+    q12_k3, q12_tiles, q12_call = drive_q12(cache, args.tile_rows)
     launches = {name: w.launches for name, w in wrappers.items()}
     assert launches["grouped_piece_sums"] == len(tiles1), launches
     assert launches["selective_sum"] == len(tiles6), launches
-    assert launches["grouped_int64_sums"] == len(tiles1), launches
+    # Q12: two exact BIGINT sums of three limbs and the row count, a tile
+    assert q12_k3 == 7 * q12_tiles, (q12_k3, q12_tiles)
+    assert launches["grouped_int64_sums"] == len(tiles1) + q12_k3, launches
     assert all(n > 0 for n in launches.values()), launches
     say("main_path", launches=launches, q6_rows_passing=passing,
         q6_revenue=float(got6["revenue"][0]), q1_groups=int(len(got1)),
-        q1_count_order=[int(x) for x in got1["count_order"]])
+        q1_count_order=[int(x) for x in got1["count_order"]],
+        q12_k3_launches=q12_k3, q12_tiles=q12_tiles)
+
+    # the kernels line, with K3 at the shape Q12's executor gave it; each
+    # record's launches are those of the main path at its shape
+    records.append(k3_at_q12_record(q12_call, args.runs, q12_k3))
+    del q12_call
+    for r, n in zip(records, (launches["selective_sum"], launches["grouped_piece_sums"],
+                              len(tiles1))):
+        r["launches"] = n
+    for r in records:
+        r["bound_ms_at_measured_bandwidth"] = r["bytes"] / bw * 1e3
+    say("kernels", kernel_names=[r["name"] for r in records], records=records)
 
     # ---- timings
     summary = {}
@@ -4193,27 +4294,32 @@ def main() -> int:
 
     # ---- the window / set-operation slice: windows (W1-W4), FULL joins (F1,
     # F2), UNION ALL (U1), a nested-loop join (N1), MergeExchange and
-    # topn_row_number (the plans).  They launch none of the hand-written
-    # kernels, and must not.
-    before = dict((name, w.launches) for name, w in wrappers.items())
+    # topn_row_number (the plans).  They launch neither K2 nor
+    # selective_sum, and must not; a direct-mode int64 sum takes K3
+    # (``k3_launches``).
+    before = launches_but_k3(wrappers)
     names = [*WINDOW_SQL, *WINDOW_PLAN_COLUMNS]
     for name in names:
+        k3_before = grouped_int64_sums.launches
         if name in WINDOW_AT_SF1 and args.sf > 1:
             fields, _ = run_slice_text(name, small, WINDOW_AT_SF1[name])
         else:
             fields, _ = run_slice_text(name, cache, args.tile_rows,
                                        want=oracles.get(WINDOW_QUERY.get(name)))
+        fields["k3_launches"] = grouped_int64_sums.launches - k3_before
         say("tpch_window", **fields)
         summary[f"window {name}"] = [None, None, fields["build_s"], fields["query_ms"]]
-    assert before == dict((name, w.launches) for name, w in wrappers.items())
+    assert before == launches_but_k3(wrappers)
 
     # ---- the function slice: the new aggregates in direct mode (A1) and in
     # sort mode through the device carry merge (A2), the scalar functions
     # (S1, S2), long decimals (D1) and NULL window keys (W5, and W5 again at
-    # SF 1 in passes of whole partitions).  They launch none of the
-    # hand-written kernels, and must not.
-    before = dict((name, w.launches) for name, w in wrappers.items())
+    # SF 1 in passes of whole partitions).  They launch neither K2 nor
+    # selective_sum, and must not; the direct-mode int64 sums of A1 and D1
+    # take K3 (``k3_launches``).
+    before = launches_but_k3(wrappers)
     for name in FUNCTION_SQL:
+        k3_before = grouped_int64_sums.launches
         if name in FUNCTION_AT_SF1 and args.sf > 1:
             fields, _ = run_slice_text(name, small, FUNCTION_AT_SF1[name])
             if name != "W5":
@@ -4231,6 +4337,9 @@ def main() -> int:
             assert agg["kind"] == "sort_agg_device" and not agg["carry_overflowed"], agg
         if name == "W5":  # one pass a window node over every orders row
             assert fields["window_largest_pass_rows"] == fields["rows_in"]["orders"], fields
+        fields["k3_launches"] = grouped_int64_sums.launches - k3_before
+        if name in ("A1", "D1"):  # direct-mode int64 sums
+            assert fields["k3_launches"] > 0, fields
         say("tpch_functions", **fields)
         summary[f"functions {name}"] = [None, None, fields["build_s"], fields["query_ms"]]
     fields, _ = run_slice_text("W5", small, W5_CHUNKED_TILE_ROWS, rows_only=True)
@@ -4240,16 +4349,18 @@ def main() -> int:
     [agg] = fields["aggregations"]
     assert agg["kind"] == "sort_agg_device" and agg["carry_overflowed"], agg
     say("tpch_functions", **fields)
-    assert before == dict((name, w.launches) for name, w in wrappers.items())
+    assert before == launches_but_k3(wrappers)
 
     # ---- the complex-type slice: collect aggregates (C1, C5, C6, C8),
     # array constructors and lambdas (C2), GroupId (C3), a VARCHAR cast key
     # rendered on the host (C4), array_join (C5), a collect back on the card
     # (C6), split + Unnest (C7), a collect feeding an Unnest (C8).  They
-    # launch none of the hand-written kernels, and must not.  A text cut to
-    # SF 1 (``COMPLEX_AT_SF1``) still asserts the path it is there for.
-    before = dict((name, w.launches) for name, w in wrappers.items())
+    # launch neither K2 nor selective_sum, and must not; a direct-mode int64
+    # sum takes K3 (``k3_launches``).  A text cut to SF 1
+    # (``COMPLEX_AT_SF1``) still asserts the path it is there for.
+    before = launches_but_k3(wrappers)
     for name in [*COMPLEX_SQL, "C7", "C8"]:
+        k3_before = grouped_int64_sums.launches
         if name in COMPLEX_AT_SF1 and args.sf > 1:
             fields, _ = run_slice_text(name, small, COMPLEX_AT_SF1[name])
         else:
@@ -4268,9 +4379,10 @@ def main() -> int:
             assert 0 < fields["largest_pool_elements"] <= fields["check"]["elements"], fields
         if name == "C5":
             assert fields["render_s"] > 0, fields
+        fields["k3_launches"] = grouped_int64_sums.launches - k3_before
         say("tpch_complex", **fields)
         summary[f"complex {name}"] = [None, None, fields["build_s"], fields["query_ms"]]
-    assert before == dict((name, w.launches) for name, w in wrappers.items())
+    assert before == launches_but_k3(wrappers)
 
     # ---- the sketch / Spark slice (H1, H2, P1, P2, B1, X1, X2, X3), each
     # against its numpy oracle with the path it is there for asserted; then
@@ -4347,10 +4459,8 @@ def main() -> int:
     say("distributed_total", seconds=time.perf_counter() - t0)
     say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+    keys = ("name", "shape", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound", "geometry")
-    for r in records:
-        r["launches"] = launches[r["name"]]
     say("summary", card=smi,
         columns="[engine_ms, device_busy_ms, build_s, query_ms]", **summary)
     say("total", seconds=time.perf_counter() - t_begin)

@@ -140,3 +140,57 @@ def test_q1_on_the_card_takes_the_kernel(cuda):
     pd.testing.assert_frame_equal(
         got, oracle_result(1, tables).reset_index(drop=True), check_dtype=False, rtol=1e-9
     )
+
+
+def _index_add_sum(values, mask, gids, num_groups):
+    """direct_group_reduce's int64 sum as it reads with ``index_add_``."""
+    gid = gids.to(torch.int64)
+    live = mask & (gid >= 0) & (gid < num_groups)
+    index = torch.where(live, gid, torch.zeros_like(gid))
+    v = torch.where(live, values, torch.zeros_like(values))
+    return torch.zeros((num_groups,), dtype=values.dtype, device=values.device).index_add_(
+        0, index, v
+    )
+
+
+@pytest.mark.parametrize("n,groups,live,gid_dtype", [
+    (1 << 24, 7, 0.005, torch.int32),  # a Q12 tile: a few groups, nearly every row dead
+    ((1 << 20) + 3, 6144, 0.5, torch.int32),  # the largest table the kernel takes
+    (1 << 16, 7, 0.9, torch.int64),  # wider ids, some past int32
+    (0, 7, 0.9, torch.int32),
+])
+def test_direct_int64_sum_takes_the_kernel(cuda, n, groups, live, gid_dtype):
+    from velox_tpu_torch.ops.segmented import direct_group_reduce
+
+    g = torch.Generator(device=cuda).manual_seed(n + groups)
+    values = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g, device=cuda)
+    mask = torch.rand(n, generator=g, device=cuda) < live
+    gids = torch.randint(-1, groups + 1, (n,), generator=g, device=cuda).to(gid_dtype)
+    if gid_dtype == torch.int64:
+        gids = gids + (torch.rand(n, generator=g, device=cuda) < 0.3) * (1 << 32)
+    before = group_sum.grouped_int64_sums.launches
+    got = direct_group_reduce(values, mask, gids, groups, "sum")
+    torch.cuda.synchronize()
+    assert group_sum.grouped_int64_sums.launches == before + 1
+    assert torch.equal(got, _index_add_sum(values, mask, gids, groups))
+
+
+def test_q12_on_the_card_takes_the_kernel(cuda):
+    """Q12 groups by ship mode in array mode after a join: every accumulator
+    of a tile is one launch of grouped_int64_sums, two exact BIGINT sums of
+    three limbs each and the row count, 7 a tile, and no index_add_."""
+    import pandas as pd
+
+    from velox_tpu_torch.connectors.tpch.plans import build_query, load_query_tables, oracle_result
+    from velox_tpu_torch.exec.runner import LocalExecutor
+
+    tables = load_query_tables(12, 0.05)
+    ex = LocalExecutor(build_query(12, tables), tile_rows=1 << 16)  # default: CUDA
+    before = group_sum.grouped_int64_sums.launches
+    got = ex.run().to_pandas().reset_index(drop=True)
+    assert ex.kind == "direct_agg" and not ex.use_piece
+    tiles = ex.source_table.num_tiles(ex.capacity)
+    assert tiles > 1 and group_sum.grouped_int64_sums.launches - before == 7 * tiles
+    pd.testing.assert_frame_equal(
+        got, oracle_result(12, tables).reset_index(drop=True), check_dtype=False, rtol=1e-9
+    )

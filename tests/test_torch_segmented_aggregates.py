@@ -92,6 +92,113 @@ def test_direct_group_reduce_batch_and_identities():
             assert port_seg.identity_for(op, pd_) == ref_seg.identity_for(op, rd)
 
 
+def _index_add_sum(values, mask, gids, num_groups):
+    """direct_group_reduce's sum as it reads with ``index_add_``."""
+    gid = gids.to(torch.int64)
+    live = mask & (gid >= 0) & (gid < num_groups)
+    index = torch.where(live, gid, torch.zeros_like(gid))
+    v = torch.where(live, values, torch.zeros_like(values))
+    return torch.zeros((num_groups,), dtype=values.dtype).index_add_(0, index, v)
+
+
+@pytest.fixture(params=["contiguous", "strided"])
+def layout(request, monkeypatch):
+    """The operands as they come (contiguous) or as every other element of
+    twice as many (strided views, which the kernel's route makes contiguous).
+    Yields a function that lays out (values, mask, gids) and the calls that
+    reached the kernel's wrapper (its plain version on the CPU)."""
+    from velox_tpu_torch.ops import group_sum
+
+    calls = []
+    real = group_sum.grouped_int64_sums
+
+    def counted(cols, gids, mask, num_groups):
+        assert all(t.is_contiguous() for t in (*cols, gids, mask))
+        calls.append((tuple(c.dtype for c in cols), gids.dtype, num_groups))
+        return real(cols, gids, mask, num_groups)
+
+    monkeypatch.setattr(group_sum, "grouped_int64_sums", counted)
+
+    def lay_out(*tensors):
+        if request.param == "contiguous":
+            return tensors
+        return tuple(torch.repeat_interleave(t, 2)[::2] for t in tensors)
+
+    return lay_out, calls
+
+
+def _sum_case(case, n=N):
+    rng = np.random.default_rng(21)
+    groups = G
+    values = rng.integers(-(1 << 40), 1 << 40, n)
+    mask = rng.random(n) < 0.8
+    gids = rng.integers(0, G, n).astype(np.int32)
+    if case == "99% dead":
+        mask = rng.random(n) < 0.01
+    elif case == "ids out of range":
+        gids = rng.integers(-4, G + 4, n).astype(np.int32)
+    elif case == "sums wrap past 2**63":
+        values = rng.integers((1 << 62) - (1 << 40), 1 << 62, n)
+    elif case == "int64 ids past int32":
+        gids = rng.integers(0, G, n) + (rng.random(n) < 0.3) * (1 << 32)  # 2**32 + g: no group
+    elif case == "int8 ids":
+        gids = rng.integers(-1, G, n).astype(np.int8)
+    elif case == "6144 groups":
+        groups = 6144
+        gids = rng.integers(-1, groups + 1, n).astype(np.int32)
+    elif case == "6145 groups":
+        groups = 6145
+        gids = rng.integers(-1, groups + 1, n).astype(np.int32)
+    return torch.from_numpy(values), torch.from_numpy(mask), torch.from_numpy(gids), groups
+
+
+@pytest.mark.parametrize("case", [
+    "99% dead", "ids out of range", "sums wrap past 2**63", "int64 ids past int32",
+    "int8 ids", "6144 groups", "6145 groups",
+])
+def test_direct_int64_sum_equals_index_add(layout, case):
+    """Bit for bit the ``index_add_`` formula; a table of one int64 a group
+    takes the kernel's route up to 48 KB (6 144 groups) and keeps
+    ``index_add_`` past it."""
+    lay_out, calls = layout
+    values, mask, gids, groups = _sum_case(case)
+    values, mask, gids = lay_out(values, mask, gids)
+    got = port_seg.direct_group_reduce(values, mask, gids, groups, "sum")
+    want = _index_add_sum(values, mask, gids, groups)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    # the exact sums, wrapped mod 2**64
+    v, m, g = values.numpy(), mask.numpy(), gids.numpy().astype(np.int64)
+    live = m & (g >= 0) & (g < groups)
+    exact = np.zeros(groups, dtype=object)
+    np.add.at(exact, g[live], v[live].astype(object))
+    np.testing.assert_array_equal(got.numpy().view(np.uint64), (exact % (1 << 64)).astype(np.uint64))
+    if case == "sums wrap past 2**63":
+        assert any(x >= 1 << 63 for x in exact)
+    taken = groups * 8 <= 48 * 1024
+    assert calls == ([((torch.int64,), torch.int32, groups)] if taken else [])
+
+
+@pytest.mark.parametrize("op,dtype", [
+    ("sum", np.float64), ("min", np.int64), ("max", np.int64), ("min", np.float64),
+    ("max", np.float64), ("sum", np.int32),
+])
+def test_direct_group_reduce_other_ops_keep_their_code(layout, op, dtype):
+    """Float sums, min / max and narrower sums take no kernel and return
+    what the JAX package does (an int32 sum, which the JAX package widens,
+    what ``index_add_`` does)."""
+    lay_out, calls = layout
+    values, mask, gids = lay_out(*(torch.from_numpy(a) for a in _inputs(dtype, seed=9)))
+    got = port_seg.direct_group_reduce(values, mask, gids, G, op)
+    if dtype is np.int32:
+        want = _index_add_sum(values, mask, gids, G)
+    else:
+        want = ref_seg.direct_group_reduce(
+            jnp.asarray(values.numpy()), jnp.asarray(mask.numpy()), jnp.asarray(gids.numpy()), G, op
+        )
+    _close(got, want, dtype is np.float64 and op == "sum")
+    assert calls == []
+
+
 def _types(mod):
     return {
         "bigint": mod.BIGINT, "double": mod.DOUBLE,

@@ -4,7 +4,7 @@ A join whose build side is a filtered scan, a grouped aggregation and a TopN
 run under ``device_profile`` on the CPU: every span their path reaches is in
 the Chrome trace, each inside the span that opened it, and the rows are the
 rows of the same query run without a profiler.  A tile's span carries the
-bytes ``batch_bytes`` counts in it; the K2 span carries the launch's
+bytes ``batch_bytes`` counts in it; the K2 and K3 spans carry the launch's
 operands; with no profiler a span is one shared no-op that calls nothing.
 Imports nothing of the JAX package."""
 
@@ -20,6 +20,7 @@ from velox_tpu_torch import dtypes as pt
 from velox_tpu_torch.exec.memory import batch_bytes
 from velox_tpu_torch.exec.runner import LocalExecutor
 from velox_tpu_torch.io.table import Table
+from velox_tpu_torch.ops import group_sum
 from velox_tpu_torch.ops.group_piece import Factor, grouped_piece_sums, plan_spec
 from velox_tpu_torch.plan import PlanBuilder
 from velox_tpu_torch.testing import table_from_numpy
@@ -57,6 +58,43 @@ def q3_shaped(tile_rows):
         .build()
     )
     return plan, tile_rows
+
+
+SHIPMODES = ["", "AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK"]
+PRIORITIES = ["", "1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+
+
+def q12_shaped():
+    """TPC-H Q12's shape: a filtered scan of ``lineitem`` joined to
+    ``orders``, grouped by ship mode in array mode, two sums of CASEs, so
+    the aggregation reduces every accumulator on its own (the join breaks
+    the piece path's row alignment)."""
+    rng = np.random.default_rng(12)
+    orders = table_from_numpy(
+        ["o_orderkey", "o_orderpriority"], ["BIGINT", "VARCHAR"],
+        {"o_orderkey": np.arange(N_ORDERS, dtype=np.int64),
+         "o_orderpriority": rng.integers(1, 6, N_ORDERS).astype(np.int32)},
+        string_values={"o_orderpriority": PRIORITIES},
+    )
+    lineitem = table_from_numpy(
+        ["l_orderkey", "l_shipmode", "l_late"], ["BIGINT", "VARCHAR", "BIGINT"],
+        {"l_orderkey": rng.integers(0, N_ORDERS, N_LINES),
+         "l_shipmode": rng.integers(1, 8, N_LINES).astype(np.int32),
+         "l_late": rng.integers(0, 4, N_LINES)},
+        string_values={"l_shipmode": SHIPMODES},
+    )
+    urgent = "o_orderpriority in ('1-URGENT', '2-HIGH')"
+    return (
+        PlanBuilder()
+        .table_scan(lineitem, filter="l_shipmode in ('MAIL', 'SHIP') and l_late = 0")
+        .hash_join(PlanBuilder().table_scan(orders), ["l_orderkey"], ["o_orderkey"],
+                   output=["l_shipmode", "o_orderpriority"])
+        .project(["l_shipmode", f"case when {urgent} then 1 else 0 end as high",
+                  f"case when {urgent} then 0 else 1 end as low"])
+        .aggregation(["l_shipmode"], ["sum(high) as high_line_count", "sum(low) as low_line_count"])
+        .orderby(["l_shipmode"])
+        .build()
+    )
 
 
 def rows_of(table):
@@ -112,6 +150,43 @@ def test_q3_shaped_plan_spans_nest(tmp_path, tile_rows):
     for i, a in enumerate(spans):
         for b in spans[i + 1:]:
             assert b[2] >= a[3] or b[3] <= a[3], (a, b)
+
+
+@pytest.mark.parametrize("tile_rows", [1 << 15, 1 << 12])
+def test_q12_shaped_plan_opens_a_k3_span_a_call(tmp_path, monkeypatch, tile_rows):
+    """direct_group_reduce sends each int64 sum to K3 (its plain version on
+    the CPU): each call is one ``velox.k3`` span inside the tile's
+    ``velox.aggregate``, with the call's operands, and the rows are those of
+    the same run without a profiler."""
+    plan = q12_shaped()
+    plain = rows_of(LocalExecutor(plan, tile_rows=tile_rows, device="cpu").run())
+    calls = []
+    real = group_sum.grouped_int64_sums
+
+    def counted(cols, gids, mask, num_groups):
+        widths = [t.element_size() for t in (*cols, gids, mask)]
+        calls.append({"rows": str(gids.shape[0]), "widths": "/".join(map(str, widths)),
+                      "groups": str(num_groups)})
+        return real(cols, gids, mask, num_groups)
+
+    monkeypatch.setattr(group_sum, "grouped_int64_sums", counted)
+    with trace.device_profile(str(tmp_path)):
+        ex = LocalExecutor(plan, tile_rows=tile_rows, device="cpu")
+        traced = rows_of(ex.run())
+    assert traced == plain and [SHIPMODES[r[0]] for r in plain] == ["MAIL", "SHIP"]
+    assert ex.kind == "direct_agg" and not ex.use_piece
+    spans = spans_in(str(tmp_path))
+    k3 = [s for s in spans if s[0] == "k3"]
+    aggregate = [s for s in spans if s[0] == "aggregate"]
+    # a tile: two exact BIGINT sums of three limbs (hi, lo, count) each, and
+    # the row count
+    n_tiles = ex.source_table.num_tiles(ex.capacity)
+    assert len(calls) == 7 * n_tiles and len(aggregate) == n_tiles
+    assert [s[1] for s in k3] == calls
+    assert all(c["widths"] == "8/4/1" and c["groups"] == str(ex.agg_exec.num_groups)
+               for c in calls)
+    for a in aggregate:
+        assert len([s for s in k3 if inside(s, [a])]) == 7
 
 
 def test_rows_are_the_same_with_and_without_a_profiler(tmp_path):

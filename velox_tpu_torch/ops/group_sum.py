@@ -1,10 +1,14 @@
 """Grouped wrapping int64 sums of several columns in one pass.
 
 Replaces the TPU kernel ``grouped_int64_sums`` of the JAX package
-(``velox_tpu/ops/pallas_group_sum.py``, kernel body ``_kernel``).  It is the
-general form under array-mode grouped sums (ops/segmented.py
-``direct_group_reduce``); the reference executor never calls it and neither
-does this one: it is an op with its own entry point.
+(``velox_tpu/ops/pallas_group_sum.py``, kernel body ``_kernel``), which the
+reference executor never calls.  Here it is on the executor's path:
+ops/segmented.py ``direct_group_reduce`` sends every wrapping int64 sum whose
+table fits (one column, at most 6 144 groups) to it, one launch a column:
+every int64 accumulator of an array-mode aggregation, and its row count, over
+a tile that does not take the piece path (ops/group_piece.py).  Each call is
+one ``velox.k3[rows=,widths=,groups=]`` span (utils/trace.py) while a
+profiler records.
 
 What it computes: per group g, for every column, the sum over rows with
 ``mask`` set and ``gids == g``, wrapping mod 2**64.
@@ -33,6 +37,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils.trace import span
 from . import launch_geometry
 
 MAX_COLS = 16
@@ -93,18 +98,27 @@ def grouped_int64_sums(
             f"{num_groups} groups x {len(cols)} columns exceed the "
             f"{MAX_TABLE_BYTES}-byte shared-memory table"
         )
-    if gids.device.type == "cpu":
-        return grouped_int64_sums_plain(cols, gids, mask, num_groups)
-    if gids.device.type != "cuda":
-        raise ValueError(f"unsupported device {gids.device}")
+    # the operands that set the bytes a launch moves, in the trace
+    operands = lambda: dict(  # noqa: E731
+        rows=n, widths=[t.element_size() for t in (*cols, gids, mask)], groups=num_groups,
+    )
+    with span("k3", operands):
+        if gids.device.type == "cpu":
+            return grouped_int64_sums_plain(cols, gids, mask, num_groups)
+        if gids.device.type != "cuda":
+            raise ValueError(f"unsupported device {gids.device}")
+        return _launch(cols, gids, mask, num_groups)
 
+
+def _launch(cols, gids, mask, num_groups) -> Tuple[torch.Tensor, ...]:
+    """One launch of the CUDA kernel over checked operands."""
     from . import cuda_build
 
     lib = cuda_build.library()
     arrays = (*cols, gids, mask)  # the order the kernel takes them in
     sm_count, stream = cuda_build.sm_count_and_stream(gids.device)
     geometry = launch_geometry.plan_launch(
-        n,
+        gids.shape[0],
         [t.element_size() for t in arrays],
         [t.data_ptr() % 16 for t in arrays],
         num_groups,

@@ -9,7 +9,11 @@ Direct modes (static, small group count):
   group in one scatter pass into ``num_groups`` slots (``index_add_`` for sums,
   ``scatter_reduce_`` for min/max).  The reference lowers this as num_groups
   masked reductions because its target had no cheap scatter; the results are
-  the same.
+  the same.  Wrapping int64 sums whose table fits the kernel's shared memory
+  take ``ops/group_sum.py grouped_int64_sums`` instead (the hand-written
+  kernel on the card, its plain version on the CPU): on the card
+  ``index_add_`` sends every dead row to slot 0, and a tile whose rows are
+  nearly all dead serialises on that one address.
 
 Sort mode (group count bounded only by the tile capacity): rows arrive
 key-sorted, groups are runs of equal keys, and every reduction is a scan plus
@@ -59,6 +63,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from . import group_sum
 from .sortkey import sort_operands
 
 _SCATTER = {"min": "amin", "max": "amax"}
@@ -123,6 +128,11 @@ def direct_group_reduce(
 
     Dead rows contribute the op's identity; a group id outside
     [0, num_groups) contributes to no group."""
+    if _takes_group_sum_kernel(values, num_groups, op):
+        # the kernel drops dead rows and ids outside [0, num_groups) itself
+        return group_sum.grouped_int64_sums(
+            (values.contiguous(),), _int32_gids(gids, num_groups), mask.contiguous(), num_groups
+        )[0]
     gid = gids.to(torch.int64)
     live = mask & (gid >= 0) & (gid < num_groups)
     index = torch.where(live, gid, torch.zeros_like(gid))
@@ -145,6 +155,26 @@ def direct_group_reduce(
         present = (last >= 0) & (_take(sorted_gid, last) == groups)
         return torch.where(present, _take(scanned, last), out)
     raise NotImplementedError(f"direct_group_reduce op {op!r} is not ported yet")
+
+
+def _takes_group_sum_kernel(values: torch.Tensor, num_groups: int, op: str) -> bool:
+    """A wrapping int64 sum over a table of one int64 a group that fits the
+    kernel's shared memory (6 144 groups)."""
+    return (
+        op == "sum"
+        and values.dtype == torch.int64
+        and 1 <= num_groups
+        and num_groups * 8 <= group_sum.MAX_TABLE_BYTES
+    )
+
+
+def _int32_gids(gids: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """The group ids as the kernel takes them: int32, an id outside
+    [0, num_groups) still outside it."""
+    if gids.dtype == torch.int32:
+        return gids.contiguous()
+    inside = (gids >= 0) & (gids < num_groups)
+    return torch.where(inside, gids, torch.full_like(gids, -1)).to(torch.int32)
 
 
 def pair_wins(op: str, ay, ax, by, bx):
