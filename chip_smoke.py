@@ -47,7 +47,11 @@ data is the same in every run.  The script
    is constructed and their time is printed as ``build_s``.  Q13 runs once
    more with tiles of 2^22 rows, for its rows only, so that its build side's
    carry merge is held against the oracle too.  These paths launch none of
-   the hand-written kernels (the JAX package has no Pallas kernel on them);
+   the three ported kernels (the JAX package has no Pallas kernel on them);
+   Q13's NOT LIKE over ``o_comment`` is one launch of K4
+   (``ops/dict_like.py``) for its plan, in its build side (asserted), and
+   the ``q13`` line and the kernels line time K4 over that dictionary,
+   resident on the card (``dict_like_record``);
 8. runs the other eighteen TPC-H plans (``tpch_plans``: one line each; Q21's
    at SF 1 in tiles of 2^20 rows when ``--sf`` is larger, ``PLANS_AT_SF1``,
    where its carries overflow into the host merge as at SF 10) and
@@ -3262,6 +3266,39 @@ def median_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
+def dict_like_record(strings, runs: int, launches: int) -> dict:
+    """The kernels line's record of K4 (``ops/dict_like.py``) over Q13's
+    comment dictionary, resident on the card where the program keeps it, at
+    Q13's first pattern: bit for bit against its plain version, timed
+    against it and against the byte floor (the entries' bytes and offsets
+    read once, one result byte an entry written once)."""
+    import torch
+
+    from velox_tpu_torch.ops import dict_like as k4
+
+    pattern = k4.parse_like("%special%requests%")
+    data, offsets = strings.byte_arrays(DEVICE)
+    got = k4.dict_like(data, offsets, pattern, DEVICE)
+    want = k4.dict_like_plain(data, offsets, pattern)
+    assert torch.equal(got, want), "dict_like disagrees with its plain version"
+    entries = offsets.shape[0] - 1
+    moved = k4.launch_bytes(data.shape[0], entries, offsets.element_size())
+    b_ms, b_by = bound(moved, data.shape[0])  # a compare a byte at least
+    record = dict(
+        name="dict_like", shape="q13 o_comment dictionary, %special%requests%", route="cuda",
+        source="velox_tpu_torch/csrc/dict_like.cu", replaces=None, max_abs_err=0,
+        ms=median_ms(lambda: k4.dict_like(data, offsets, pattern, DEVICE), runs),
+        plain_ms=median_ms(lambda: k4.dict_like_plain(data, offsets, pattern), runs),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        entries=entries, bytes=moved, matches=int(want.sum()), geometry=None,
+        launches=launches,
+    )
+    record["share_of_bound"] = record["bound_ms"] / record["ms"]
+    del got, want
+    torch.cuda.empty_cache()
+    return record
+
+
 def measured_bandwidth(runs: int) -> float:
     """Device-memory bytes/s of a large int64 ``sum`` (read once)."""
     import torch
@@ -4210,10 +4247,13 @@ def main() -> int:
     # ---- the sort-mode paths: joins, sort-mode grouping, device TopN.  They
     # launch none of the hand-written kernels, and must not.
     before = dict((name, w.launches) for name, w in wrappers.items())
+    from velox_tpu_torch.ops.dict_like import dict_like
+
     for num in (3, 13):
         before_gen = dict(cache.generate_s)
         tables = cache.for_query(num)
         gen = {k: v for k, v in cache.generate_s.items() if k not in before_gen}
+        dict_like.launches = 0  # Q13's LIKE: one launch for its plan, counted from here
         ex, tiles, plan, rep = plan_query(num, tables, args.tile_rows)
         assert ex.kind == "sort_agg_device", ex.kind
         torch.cuda.reset_peak_memory_stats()
@@ -4254,6 +4294,15 @@ def main() -> int:
             )
             del ex4, tiles4
         timing = time_query(ex, tiles, args.runs)
+        if num == 13:
+            # the LIKE's result is kept on the plan's node: every executor of
+            # the one plan above, and every timed run, reads the first launch
+            assert dict_like.launches == 1, dict_like.launches
+            records.append(dict_like_record(tables["orders"].string_tables["o_comment"],
+                                            args.runs, dict_like.launches))
+            extra["k4"] = {k: records[-1][k] for k in
+                           ("launches", "ms", "plain_ms", "bound_ms", "share_of_bound", "entries",
+                            "bytes", "matches")}
         rows_per_s = rep["rows"] / (timing["engine_ms"] * 1e-3)
         say(f"q{num}", **{
             "sf": args.sf, "generate_s": gen, **rep, **timing, "rows_per_s": rows_per_s,

@@ -72,3 +72,45 @@ def test_hive_roundtrip_of_a_device_result(cuda, tmp_path):
     got = LocalExecutor(build_q1(back), tile_rows=1 << 14).run().to_pandas()
     want = LocalExecutor(build_q1(li), tile_rows=1 << 14, device="cpu").run().to_pandas()
     pd.testing.assert_frame_equal(got, want, check_dtype=False, rtol=1e-9)
+
+
+@pytest.mark.parametrize("index", [0, 2])  # a full tile and the ragged last one
+def test_host_table_tiles_on_the_card_equal_the_cpu_tiles(cuda, index):
+    """``Table.tile`` on CUDA writes each numeric column (narrowed, padded,
+    its validity too) once into page-locked memory; the tile equals the CPU
+    tile, dtypes included, for a writeable and a read-only column, and a
+    string column's codes keep their dictionary."""
+    from velox_tpu_torch.io.table import Table
+    from velox_tpu_torch.vector.string_table import StringTable
+
+    rng = np.random.default_rng(5 + index)
+    n = 2 * 1024 + 300
+    frozen = rng.integers(-(1 << 40), 1 << 40, n)
+    frozen.flags.writeable = False
+    strings = StringTable.from_values(["", "a", "bb", "ccc"])
+    cols = {
+        "small": rng.integers(-30000, 30000, n).astype(np.int64),
+        "wide": frozen,
+        "day": rng.integers(8000, 10000, n).astype(np.int32),
+        "dbl": rng.normal(size=n),
+        "flag": rng.random(n) < 0.5,
+        "name": rng.integers(0, 4, n).astype(np.int32),
+    }
+    names = list(cols)
+    types = [vtt.BIGINT, vtt.BIGINT, vtt.DATE, vtt.DOUBLE, vtt.BOOLEAN, vtt.VARCHAR]
+    table = Table(vtt.RowType(names, types), cols, {"name": strings},
+                  {"small": rng.random(n) < 0.9, "dbl": rng.random(n) < 0.8})
+    got = table.tile(index, 1024, device=cuda)
+    want = table.tile(index, 1024, device="cpu")
+    torch.cuda.synchronize()
+    assert (got.capacity, int(got.length), int(got.row_offset)) == (
+        want.capacity, int(want.length), int(want.row_offset))
+    for name in names:
+        g, w = got.column(name), want.column(name)
+        assert g.data.device.type == "cuda" and g.data.dtype == w.data.dtype, name
+        assert torch.equal(g.data.cpu(), w.data), name
+        assert (g.validity is None) == (w.validity is None), name
+        if w.validity is not None:
+            assert torch.equal(g.validity.cpu(), w.validity), name
+    assert got.column("name").strings is strings
+    assert got.column("small").data.dtype == torch.int16

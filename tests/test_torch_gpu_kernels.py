@@ -194,3 +194,95 @@ def test_q12_on_the_card_takes_the_kernel(cuda):
     pd.testing.assert_frame_equal(
         got, oracle_result(12, tables).reset_index(drop=True), check_dtype=False, rtol=1e-9
     )
+
+
+def _dictionary_on(cuda, values):
+    """(bytes, offsets) of ``values`` resident on the card, made once a table."""
+    from velox_tpu_torch.vector.string_table import StringTable
+
+    table = StringTable.from_values(values)
+    data, offsets = table.byte_arrays(cuda)
+    assert data.device.type == "cuda" and offsets.device.type == "cuda"
+    assert table.byte_arrays(cuda)[0] is data
+    return data, offsets
+
+
+def _like_patterns():
+    words1 = ["special", "pending", "unusual", "express"]
+    words2 = ["packages", "requests", "accounts", "deposits"]
+    return [f"%{a}%{b}%" for a in words1 for b in words2]
+
+
+def test_dict_like_kernel_on_the_full_comment_pool(cuda):
+    """K4 against its plain version (run on the card), bit for bit, over the
+    benchmark's 15 M comments resident on the card, for each of the 16 Q13
+    patterns and a few more shapes."""
+    from portbench.columns.orders_text import o_comment
+    from velox_tpu_torch.ops import dict_like as k4
+
+    values = [""] + o_comment.categories()
+    assert len(values) == 15_000_001
+    data, offsets = _dictionary_on(cuda, values)
+    extra = ["", "%", "ly%", "%s.", "%the%", "furiously%deposits", "e", "%a%e%i%o%u%", "%s%"]
+    for text in _like_patterns() + extra:
+        pattern = k4.parse_like(text)
+        want = k4.dict_like_plain(data, offsets, pattern)
+        before = k4.dict_like.launches
+        got = k4.dict_like(data, offsets, pattern, cuda)
+        torch.cuda.synchronize()
+        assert k4.dict_like.launches == before + 1
+        assert torch.equal(got, want), text
+        assert 0 < int(want.sum()) < len(values) or text in ("", "e", "%")
+
+
+@pytest.mark.parametrize("values", [
+    None,  # no entries at all
+    [""],  # entries, but no bytes
+    ["", "é中ß", "aaa", "aa" * 20000, "x" * 40000 + "special" + "y" * 3 + "requests"],
+    # a block whose bytes all but fill the stage: the search reads past them
+    [""] + [f"{i:03d}" + "xa" * 46 + "y" for i in range(300)],
+])
+def test_dict_like_kernel_edge_cases(cuda, values):
+    """0 entries; only the empty string; non-ASCII text, an overlap, and
+    entries longer than a block's shared-memory stage, which are read where
+    they lie; operands not on the card are refused."""
+    from velox_tpu_torch.ops import dict_like as k4
+
+    if values is None:
+        data = torch.zeros(0, dtype=torch.uint8, device=cuda)
+        offsets = torch.zeros(1, dtype=torch.int32, device=cuda)
+        got = k4.dict_like(data, offsets, k4.parse_like("%a%"), cuda)
+        assert got.shape == (0,) and got.device.type == "cuda"
+        return
+    data, offsets = _dictionary_on(cuda, values)
+    for text in ["%", "", "aa%aa", "%中%", "%special%requests%", "x%", "%y%s", "é%ß", "%a%",
+                 "%ay%", "%xa%y"]:
+        pattern = k4.parse_like(text)
+        want = k4.dict_like_plain(data, offsets, pattern)
+        assert torch.equal(k4.dict_like(data, offsets, pattern, cuda), want), text
+        wide = k4.dict_like(data, offsets.long(), pattern, cuda)
+        assert torch.equal(wide, want), text
+    if offsets.shape[0] > 1:
+        with pytest.raises(ValueError, match="operand on cpu"):
+            k4.dict_like(data.cpu(), offsets.cpu(), k4.parse_like("%a%"), cuda)
+
+
+def test_q13_on_the_card_takes_the_kernel(cuda):
+    """The LIKE of Q13's build side is one K4 launch a query, whatever the
+    number of tiles, and the rows are the oracle's."""
+    import pandas as pd
+
+    from velox_tpu_torch.connectors.tpch.plans import build_query, load_query_tables, oracle_result
+    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.ops import dict_like as k4
+
+    tables = load_query_tables(13, 0.05)
+    before = k4.dict_like.launches
+    ex = LocalExecutor(build_query(13, tables), tile_rows=1 << 14)  # default: CUDA
+    assert k4.dict_like.launches == before + 1  # in the build side, while constructing
+    got = ex.run().to_pandas().reset_index(drop=True)
+    assert k4.dict_like.launches == before + 1
+    assert tables["orders"].num_tiles(1 << 14) > 1
+    pd.testing.assert_frame_equal(
+        got, oracle_result(13, tables).reset_index(drop=True), check_dtype=False, rtol=1e-9
+    )

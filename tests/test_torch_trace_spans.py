@@ -275,3 +275,45 @@ def test_k2_span_holds_its_operands(tmp_path, dtypes):
     widths = [t.element_size() for t in (*cols, gid)]
     assert span[1] == {"rows": str(rows), "widths": "/".join(map(str, widths)),
                        "specs": str(len(plans)), "groups": str(groups)}
+
+
+def q13_shaped(values, n_orders=5000):
+    """TPC-H Q13's plan (``build_q13``) over orders whose comments are the
+    entries of ``values``, one an order."""
+    from velox_tpu_torch.connectors.tpch.plans import build_q13
+
+    rng = np.random.default_rng(13)
+    orders = table_from_numpy(
+        ["o_custkey", "o_comment"], ["BIGINT", "VARCHAR"],
+        {"o_custkey": rng.integers(1, 500, n_orders),
+         "o_comment": rng.integers(1, len(values), n_orders).astype(np.int32)},
+        string_values={"o_comment": values},
+    )
+    customer = table_from_numpy(["c_custkey"], ["BIGINT"], {"c_custkey": np.arange(1, 600)})
+    return build_q13(customer, orders)
+
+
+@pytest.mark.parametrize("tile_rows", [1 << 15, 1 << 10])
+def test_q13_shaped_plan_opens_one_like_span_a_query(tmp_path, tile_rows):
+    """The LIKE of Q13's build side is one ``velox.like`` span a query,
+    whatever the number of tiles, inside the executor's construction and
+    its build side, where the filter first evaluates it.  Its ``bytes`` are
+    the bytes ``like_roofline_share`` counts for the same dictionary."""
+    from portbench.columns.orders_text.o_comment import comment_pool
+    from portbench.like_roofline import dict_like_bytes
+
+    values = [""] + comment_pool(3000, 11)
+    plain = rows_of(LocalExecutor(q13_shaped(values), tile_rows=tile_rows, device="cpu").run())
+    with trace.device_profile(str(tmp_path)):
+        for _ in range(2):  # two queries, each with its own plan
+            traced = rows_of(LocalExecutor(q13_shaped(values), tile_rows=tile_rows,
+                                           device="cpu").run())
+    assert traced == plain
+    spans = spans_in(str(tmp_path))
+    like = [s for s in spans if s[0] == "like"]
+    construct = [s for s in spans if s[0] == "construct"]
+    build = [s for s in spans if s[0] == "build"]
+    assert len(like) == 2
+    assert all(inside(s, construct) and inside(s, build) for s in like)
+    assert [s[1] for s in like] == [{"entries": str(len(values)),
+                                     "bytes": str(dict_like_bytes(values))}] * 2

@@ -144,9 +144,8 @@ class BoundAggregate:
         out = []
         for arr, dt, op in zip(arrays, self.acc_dtypes, self.acc_ops):
             arr = arr.to(dt)
-            out.append(
-                torch.where(mask, arr, torch.full_like(arr, _identity(op, dt)))
-            )
+            ident = torch.full((), _identity(op, dt), dtype=dt, device=arr.device)
+            out.append(torch.where(mask, arr, ident))
         return out
 
     def update(self, accs, values, mask, group_ids, num_groups):

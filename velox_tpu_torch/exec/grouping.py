@@ -238,16 +238,25 @@ class SortGrouping:
         if plan is not None:
             # One packed key (ops/sortkey.py): liveness sentinel + every key +
             # the row-id ride in a single int64, so the words are unique.
-            idx64 = torch.arange(cap, dtype=torch.int64, device=mask.device)
+            # Each temporary is freed as soon as it is spent: over a tile of
+            # 2^24 rows every int64 one is 128 MiB of the query's peak.
             packed = plan.pack_with_sentinel(key_vals, ~mask, key_valid)
-            s, perm = torch.sort(packed | idx64, stable=True)
-            codes = s >> plan.low_bits
-            sorted_keys = [
-                plan.unpack(s, i).to(kv.dtype) for i, kv in enumerate(key_vals)
-            ]
+            packed |= torch.arange(cap, dtype=torch.int64, device=mask.device)
+            dtypes = [kv.dtype for kv in key_vals]
+            del key_vals, key_valid
+            s, perm = torch.sort(packed, stable=True)
+            del packed
             moved = [c.index_select(0, perm) for c in carried]
+            del perm
             sorted_payload, sorted_mask = moved[:-1], moved[-1]
-            diff = codes != torch.roll(codes, 1)
+            sorted_keys = [plan.unpack(s, i).to(dt) for i, dt in enumerate(dtypes)]
+            codes = s >> plan.low_bits
+            del s
+            # the key changed from the previous row (row 0: from the last)
+            diff = torch.empty((cap,), dtype=torch.bool, device=mask.device)
+            torch.ne(codes[1:], codes[:-1], out=diff[1:])
+            torch.ne(codes[:1], codes[-1:], out=diff[:1])
+            del codes
             runs = SortedRuns(run_boundaries(diff, sorted_mask), sorted_mask)
             return sorted_keys, sorted_payload, sorted_mask, runs
         # Several-key fallback: (liveness, keys) as sort keys, payloads carried.
@@ -262,8 +271,10 @@ class SortGrouping:
 
     @staticmethod
     def group_keys(sorted_keys, runs):
-        """Representative key value per run slot (keys are equal within a run)."""
-        return [runs.first(kv) for kv in sorted_keys]
+        """Representative key value per run slot: the key at the run's last
+        live row, since the live rows of a run hold equal keys (slots past
+        the runs are garbage, as in ``SortedRuns.reduce``)."""
+        return [kv.index_select(0, runs.end_positions) for kv in sorted_keys]
 
 
 def _key_change(sorted_keys, n: int, device) -> torch.Tensor:

@@ -10,7 +10,11 @@ are rewritten against the scan's string tables:
   a literal) are evaluated once per *distinct* dictionary entry on the host and
   become a single device gather (``DictLookup``) — the bind-time form of the
   reference's evaluate-on-dictionary-values peeling
-  (velox/expression/PeeledEncoding.h; string-dictionary readers in dwio).
+  (velox/expression/PeeledEncoding.h; string-dictionary readers in dwio);
+* except ``like`` with a pattern of literal text and ``%`` only (no ``_``, no
+  ESCAPE): its per-entry results are a ``LikeTable``, which the executor
+  works out on the device when it first evaluates the node
+  (``ops/dict_like.py``), so binding does no work per entry.
 
 This is valid because scan dictionaries are immutable for the life of a query.
 
@@ -29,7 +33,7 @@ import numpy as np
 
 from ..dtypes import BIGINT, BOOLEAN, TypeKind, VARCHAR
 from ..vector.string_table import StringTable
-from .ir import Call, Constant, DictLookup, Expr, FieldAccess, HostArray, Special
+from .ir import Call, Constant, DictLookup, Expr, FieldAccess, HostArray, LikeTable, Special
 
 
 def like_to_regex(pattern: str, escape: Optional[str] = None) -> str:
@@ -285,6 +289,12 @@ def _bind_like(expr: Call, tables, ctx) -> Optional[Expr]:
     escape = None
     if len(expr.args) > 2 and isinstance(expr.args[2], Constant):
         escape = expr.args[2].value
+    if len(expr.args) == 2:
+        from ..ops.dict_like import parse_like
+
+        pattern = parse_like(pattern_e.value)
+        if pattern is not None:
+            return DictLookup(BOOLEAN, child, LikeTable(table, pattern))
     rx = re.compile(like_to_regex(pattern_e.value, escape))
     arr = _per_entry(table, lambda v: bool(rx.match(v)), BOOLEAN, np.bool_)
     return DictLookup(BOOLEAN, child, arr)

@@ -156,6 +156,36 @@ class HostArray:
         return self is other
 
 
+class LikeTable:
+    """The per-entry results of a LIKE over a dictionary, worked out when the
+    executor first evaluates the node, not when the plan is bound: ``on(device)``
+    matches the pattern against every entry with ``ops/dict_like.py`` (the
+    K4 kernel on a CUDA device, over the entries' bytes that
+    ``StringTable.byte_arrays`` keeps resident there) and keeps the result,
+    once per device, like ``HostArray.on``."""
+
+    __slots__ = ("strings", "pattern", "_on")
+
+    def __init__(self, strings, pattern):
+        self.strings = strings
+        self.pattern = pattern  # ops/dict_like.py LikePattern
+        self._on = {}
+
+    def on(self, device):
+        import torch
+
+        from ..ops.dict_like import dict_like
+
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = str(device)
+        if key not in self._on:
+            data, offsets = self.strings.byte_arrays(device)
+            self._on[key] = dict_like(data, offsets, self.pattern, device)
+        return self._on[key]
+
+
 @dataclasses.dataclass(frozen=True)
 class DictLookup(Expr):
     """Gather a host-precomputed per-dictionary-code result: out = values[codes].
@@ -171,7 +201,7 @@ class DictLookup(Expr):
     """
 
     child: Optional[Expr] = None
-    values: Optional[HostArray] = None
+    values: Optional[HostArray] = None  # or a LikeTable, worked out when evaluated
     strings: Optional[object] = None  # StringTable of the result, if VARCHAR
     child2: Optional[Expr] = None
     width: int = 0  # second dictionary's size (pair form only)

@@ -197,6 +197,16 @@ class Table:
                 continue
             arr = np.asarray(self.columns[name][start:stop])
             narrow = self._narrow_dtype(name, dtype, arr)
+            if device.type == "cuda" and arr.dtype.kind in "bif":
+                validity = self.validities.get(name)
+                cols.append(Column.flat(
+                    _pinned(arr, Column.host_dtype(narrow, dtype), tile_rows),
+                    dtype,
+                    None if validity is None
+                    else _pinned(validity[start:stop], np.dtype(np.bool_), tile_rows),
+                    self.string_tables.get(name),
+                ))
+                continue
             if narrow != arr.dtype:
                 arr = arr.astype(narrow)
             if n < tile_rows:
@@ -561,15 +571,32 @@ class Table:
         return Table(RowType(names, types), cols, tables, validities)
 
 
+def _pinned(arr: np.ndarray, np_dtype: np.dtype, rows: int) -> torch.Tensor:
+    """``arr`` cast to ``np_dtype`` and zero-padded to ``rows`` rows, written
+    once into page-locked memory from torch's caching host allocator (a block
+    is reused once its upload is done): no host temporaries to allocate and
+    fault in.  One thread: on a shared host, torch's parallel copy and fill
+    spread the query times wider than they saved."""
+    torch_dtype = torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
+    out = torch.empty((rows,) + arr.shape[1:], dtype=torch_dtype, pin_memory=True)
+    view = out.numpy()
+    np.copyto(view[: arr.shape[0]], arr, casting="unsafe")
+    view[arr.shape[0]:] = 0
+    return out
+
+
 def _pin(batch: Batch) -> Batch:
-    """The batch with every host tensor copied into page-locked memory, so
-    the following upload can be asynchronous."""
+    """The batch with every host tensor in page-locked memory, so the
+    following upload can be asynchronous."""
+
+    def page_locked(t: torch.Tensor) -> torch.Tensor:
+        return t if t.is_pinned() else t.pin_memory()
 
     def pin(c: Column) -> Column:
         return dataclasses.replace(
             c,
-            data=c.data.pin_memory(),
-            validity=None if c.validity is None else c.validity.pin_memory(),
+            data=page_locked(c.data),
+            validity=None if c.validity is None else page_locked(c.validity),
             base=None if c.base is None else pin(c.base),
             children=tuple(pin(ch) for ch in c.children),
         )

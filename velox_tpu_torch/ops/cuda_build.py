@@ -52,6 +52,7 @@ _SIGNATURES = {
     "velox_grouped_piece_sums": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P],
     "velox_grouped_int64_sums": [_P, _P, _I, _P, _I, _P, _P],
     "velox_grouped_limits": [_P],
+    "velox_dict_like": [_P, _P, _I, _L, _P, _I, _P, _I, _I, _P, _P],
 }
 
 

@@ -83,8 +83,9 @@ def identity_for(op: str, dtype: torch.dtype):
 
 
 def _with_identity(values: torch.Tensor, mask: torch.Tensor, op: str) -> torch.Tensor:
-    ident = identity_for(op, values.dtype)
-    return torch.where(mask, values, torch.full_like(values, ident))
+    # the identity as one broadcast element, not a tensor of the values' size
+    ident = torch.full((), identity_for(op, values.dtype), dtype=values.dtype, device=values.device)
+    return torch.where(mask, values, ident)
 
 
 _BITWISE = {"band": torch.bitwise_and, "bor": torch.bitwise_or}
@@ -371,7 +372,7 @@ def _flagged_table(flags: torch.Tensor, values: torch.Tensor, fill):
     scatter into the spare last slot, which is never read."""
     n = flags.shape[0]
     count = torch.cumsum(flags, 0, dtype=torch.int64)
-    slot = torch.where(flags, count, torch.full_like(count, n + 1))
+    slot = torch.where(flags, count, n + 1)
     table = torch.full((n + 2,), fill, dtype=values.dtype, device=values.device)
     return table.scatter_(0, slot, values), count
 
@@ -391,7 +392,9 @@ def next_flagged(flags: torch.Tensor, values: torch.Tensor, fill) -> torch.Tenso
     a reversed ``cummin`` when the flagged values do not decrease and
     ``fill`` is above them)."""
     table, count = _flagged_table(flags, values, fill)
-    return table.index_select(0, count - flags.to(torch.int64) + 1)
+    # that row is the (count - flags + 1)-th flagged one; in place, since
+    # over a whole tile each int64 temporary is 8 bytes a row
+    return table.index_select(0, count.add_(~flags))
 
 
 def _segmented_float_sum(values: torch.Tensor, boundary: torch.Tensor) -> torch.Tensor:
@@ -485,10 +488,11 @@ def run_is_end(
     # run ids never decrease, so the least run id of the later live rows is
     # the id of the next live row: the first live row at or after i + 1
     at_or_after = next_flagged(mask, run_index, big)
-    next_live_rid = torch.cat(
-        [at_or_after[1:], torch.full((1,), big, dtype=run_index.dtype, device=run_index.device)]
-    )
-    return mask & (next_live_rid != run_index)
+    # row i compares with the next live row at or after i + 1; the last row
+    # has none (big), which differs from every run id
+    out = torch.ones((cap,), dtype=torch.bool, device=mask.device)
+    torch.ne(at_or_after[1:], run_index[:-1], out=out[:-1])
+    return out.logical_and_(mask)
 
 
 class SortedRuns:
@@ -508,8 +512,8 @@ class SortedRuns:
         self.capacity = boundary.shape[0]
         self.boundary = boundary  # True at first row of each run (live rows only)
         self.mask = mask
-        self.run_index = torch.cumsum(boundary, 0) - 1  # run id per row
-        self.is_end = run_is_end(boundary, mask, self.run_index)
+        self._run_index: Optional[torch.Tensor] = None  # see run_index
+        self.is_end = run_is_end(boundary, mask, self._row_runs())
         if end_positions is None:
             end_positions = torch.argsort(
                 (~self.is_end).to(torch.uint8), stable=True
@@ -517,6 +521,18 @@ class SortedRuns:
         self.end_positions = end_positions
         self.num_runs = self.is_end.sum().to(torch.int32)
         self._start_of_row: Optional[torch.Tensor] = None  # see first()
+
+    def _row_runs(self) -> torch.Tensor:
+        return torch.cumsum(self.boundary, 0).sub_(1)
+
+    @property
+    def run_index(self) -> torch.Tensor:
+        """int64 [capacity]: the run id of each row, made when first asked
+        for and then kept (an integer sum never asks: over a tile of 2^24
+        rows it is 128 MiB that need not be held)."""
+        if self._run_index is None:
+            self._run_index = self._row_runs()
+        return self._run_index
 
     def reduce(self, values: torch.Tensor, value_mask: torch.Tensor, op: str) -> torch.Tensor:
         """[capacity] tensor: slot r = reduction of run r (slots >= num_runs
@@ -536,9 +552,16 @@ class SortedRuns:
             gid = self.run_index.clamp(0, max(self.capacity - 1, 0))
             return torch.zeros_like(v).index_add_(0, gid, v)
         if op == "sum":
+            # each temporary goes once spent; end_positions are row ids, in
+            # range: no clamp
             totals = torch.cumsum(v, 0)
-            at_ends = _take(totals, self.end_positions)
-            return at_ends - _shift_in(0, at_ends)
+            del v
+            at_ends = totals.index_select(0, self.end_positions)
+            del totals
+            out = torch.empty_like(at_ends)
+            out[:1] = at_ends[:1]
+            torch.sub(at_ends[1:], at_ends[:-1], out=out[1:])
+            return out
         if op in _SCATTER:
             # one scatter into run slots; dead rows carry the identity, so
             # clamping their run id (-1 before the first run) is harmless

@@ -9,7 +9,9 @@ lives here, on the host, and is only consulted at ingest (literal → code) and 
 (codes → strings).  High-cardinality strings keep a per-column table built at ingest.
 
 ``byte_matrix`` gives a padded uint8 form for device-side string compute that
-cannot be expressed over codes.
+cannot be expressed over codes; ``byte_arrays`` gives every entry's UTF-8
+bytes end to end with their offsets, made once a table, which
+``ops/dict_like.py`` reads to match LIKE patterns against every entry.
 """
 
 from __future__ import annotations
@@ -28,12 +30,13 @@ class StringTable:
     zero-initialized device buffers decode to '' rather than garbage.
     """
 
-    __slots__ = ("_values", "_index", "frozen")
+    __slots__ = ("_values", "_index", "frozen", "_arrays")
 
     def __init__(self, values: Optional[Iterable[str]] = None):
         self._values: List[str] = [""]
         self._index: Dict[str, int] = {"": 0}
         self.frozen = False
+        self._arrays: Dict[str, tuple] = {}
         if values is not None:
             for v in values:
                 self.intern(v)
@@ -104,6 +107,45 @@ class StringTable:
         ranks = np.empty(len(self._values), dtype=np.int32)
         ranks[order] = np.arange(len(self._values), dtype=np.int32)
         return ranks
+
+    def byte_arrays(self, device=None):
+        """(uint8 bytes of every entry end to end, their offsets) on ``device``
+        (the CPU by default).  Offsets are int32 while the bytes stay under
+        2**31, else int64.  Made once a table and device, and kept there
+        (again only if the table has grown since): on a card they stay
+        resident for every later query."""
+        import torch
+
+        device = torch.device("cpu" if device is None else device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = str(device)
+        hit = self._arrays.get(key)
+        if hit is not None and hit[0] == len(self._values):
+            return hit[1], hit[2]
+        if device.type != "cpu":
+            data, offsets = self.byte_arrays()
+            out = (len(self._values), data.to(device), offsets.to(device))
+            self._arrays[key] = out
+            return out[1], out[2]
+        values = self._values
+        joined = "".join(values)
+        data = joined.encode("utf-8", "surrogatepass")
+        if len(data) == len(joined):  # ASCII: a character is a byte
+            lengths = np.fromiter(map(len, values), dtype=np.int64, count=len(values))
+        else:
+            lengths = np.fromiter(
+                (len(v.encode("utf-8", "surrogatepass")) for v in values),
+                dtype=np.int64, count=len(values),
+            )
+        offsets = np.zeros(len(values) + 1, dtype=np.int64)
+        np.cumsum(lengths, out=offsets[1:])
+        if offsets[-1] < 2**31:
+            offsets = offsets.astype(np.int32)
+        out = (len(values), torch.from_numpy(np.frombuffer(bytearray(data), dtype=np.uint8)),
+               torch.from_numpy(offsets))
+        self._arrays[key] = out
+        return out[1], out[2]
 
     def byte_matrix(self, max_len: Optional[int] = None) -> np.ndarray:
         """Padded uint8 matrix [num_strings, max_len] of UTF-8 bytes (0-padded)."""
