@@ -3766,6 +3766,11 @@ class TpchTables:
 
         return {name: self.table(name).select(cols) for name, cols in QUERY_COLUMNS[num].items()}
 
+    def kept_bytes(self) -> dict:
+        """The page-locked bytes each table keeps for the streaming scans of
+        it and of its views (``Table.kept_bytes``)."""
+        return {name: t.kept_bytes() for name, t in self._tables.items()}
+
 
 def plan_query(num: int, tables, tile_rows: int, plan=None):
     """Plan the query (or take ``plan``), construct its executor (which runs
@@ -4507,6 +4512,9 @@ def main() -> int:
         summary[f"distributed {fields['line']}"] = [None, None, None, fields["query_s"] * 1e3]
     say("distributed_total", seconds=time.perf_counter() - t0)
     say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)
+    kept, sf1_kept = cache.kept_bytes(), small.kept_bytes()
+    say("page_locked_kept", sf=args.sf, bytes=sum(kept.values()), by_table=kept,
+        sf1_bytes=sum(sf1_kept.values()), sf1_by_table=sf1_kept)
 
     keys = ("name", "shape", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound", "geometry")

@@ -79,7 +79,9 @@ def test_host_table_tiles_on_the_card_equal_the_cpu_tiles(cuda, index):
     """``Table.tile`` on CUDA writes each numeric column (narrowed, padded,
     its validity too) once into page-locked memory; the tile equals the CPU
     tile, dtypes included, for a writeable and a read-only column, and a
-    string column's codes keep their dictionary."""
+    string column's codes keep their dictionary.  The streaming scan
+    (``Table.tiles``) keeps its page-locked tile: a second scan uploads the
+    same kept blocks, and its tile equals the CPU tile too."""
     from velox_tpu_torch.io.table import Table
     from velox_tpu_torch.vector.string_table import StringTable
 
@@ -100,17 +102,47 @@ def test_host_table_tiles_on_the_card_equal_the_cpu_tiles(cuda, index):
     types = [vtt.BIGINT, vtt.BIGINT, vtt.DATE, vtt.DOUBLE, vtt.BOOLEAN, vtt.VARCHAR]
     table = Table(vtt.RowType(names, types), cols, {"name": strings},
                   {"small": rng.random(n) < 0.9, "dbl": rng.random(n) < 0.8})
-    got = table.tile(index, 1024, device=cuda)
     want = table.tile(index, 1024, device="cpu")
+    scans = [table.tile(index, 1024, device=cuda)]
+    assert table.kept_bytes() == 0
+    kept = None
+    for _ in range(2):  # cold, then from the kept blocks
+        scans.append(list(table.tiles(1024, device=cuda))[index])
+        blocks = {k: t.data_ptr() for k, (_, t) in table._kept.items()}
+        assert kept in (None, blocks) and all(t.is_pinned() for _, t in table._kept.values())
+        kept = blocks
+    assert table.kept_bytes() == table.num_tiles(1024) * table.tile_bytes(1024)
     torch.cuda.synchronize()
-    assert (got.capacity, int(got.length), int(got.row_offset)) == (
-        want.capacity, int(want.length), int(want.row_offset))
-    for name in names:
-        g, w = got.column(name), want.column(name)
-        assert g.data.device.type == "cuda" and g.data.dtype == w.data.dtype, name
-        assert torch.equal(g.data.cpu(), w.data), name
-        assert (g.validity is None) == (w.validity is None), name
-        if w.validity is not None:
-            assert torch.equal(g.validity.cpu(), w.validity), name
-    assert got.column("name").strings is strings
-    assert got.column("small").data.dtype == torch.int16
+    for got in scans:
+        assert (got.capacity, int(got.length), int(got.row_offset)) == (
+            want.capacity, int(want.length), int(want.row_offset))
+        for name in names:
+            g, w = got.column(name), want.column(name)
+            assert g.data.device.type == "cuda" and g.data.dtype == w.data.dtype, name
+            assert torch.equal(g.data.cpu(), w.data), name
+            assert (g.validity is None) == (w.validity is None), name
+            if w.validity is not None:
+                assert torch.equal(g.validity.cpu(), w.validity), name
+        assert got.column("name").strings is strings
+        assert got.column("small").data.dtype == torch.int16
+
+
+@pytest.mark.parametrize("num", [3, 13])
+def test_plans_over_kept_host_tiles_give_the_same_rows_each_time(cuda, num):
+    """Q3 (two build sides, orders and customer) and Q13 (the orders build
+    side under a NOT LIKE) at SF 0.05, three plans over the same host tables,
+    as a power stream runs them: the first executor stages and keeps the
+    host tiles, the next two upload from the kept blocks; the rows are the
+    oracle's every time."""
+    from velox_tpu_torch.connectors.tpch.plans import build_query, load_query_tables, oracle_result
+    from velox_tpu_torch.exec.runner import LocalExecutor
+
+    tables = load_query_tables(num, 0.05)
+    want = oracle_result(num, tables).reset_index(drop=True)
+    kept = []
+    for _ in range(3):
+        ex = LocalExecutor(build_query(num, tables), tile_rows=1 << 14)  # default: CUDA
+        got = ex.run().to_pandas()[list(want.columns)].reset_index(drop=True)
+        pd.testing.assert_frame_equal(got, want, check_dtype=False, rtol=1e-9)
+        kept.append({name: t.kept_bytes() for name, t in tables.items()})
+    assert all(kept[0].values()) and kept == [kept[0]] * 3

@@ -248,16 +248,50 @@ def test_no_profiler_no_span():
 
 
 def test_span_name_form(tmp_path):
+    from portbench.program_trace import span_counts
+
     seen = []
     with trace.device_profile(str(tmp_path)):
-        with trace.span("tile", lambda: seen.append(1) or {"bytes": 123456}):
+        with trace.span("tile", lambda: seen.append(1) or {"bytes": 123456, "staged": 0}):
             pass
         with trace.span("k2", lambda: {"rows": 8, "widths": [1, 4], "specs": 2, "groups": 3}):
             pass
     names = [(s[0], s[1]) for s in spans_in(str(tmp_path))]
-    assert names == [("tile", {"bytes": "123456"}),
+    assert names == [("tile", {"bytes": "123456", "staged": "0"}),
                      ("k2", {"rows": "8", "widths": "1/4", "specs": "2", "groups": "3"})]
     assert seen == [1]
+    assert span_counts(trace.span_name("tile", {"bytes": 123456, "staged": 0})) == {
+        "bytes": 123456, "staged": 0}
+
+
+def test_a_second_executor_over_a_host_table_stages_nothing(tmp_path, monkeypatch):
+    """Through the CPU staging seam: the first executor's tiles write what
+    they upload (``staged`` equals ``bytes`` on every tile's first scan, and
+    the ``staged`` counts sum to the bytes of the blocks written); the
+    second executor over the same host tables opens ``velox.tile`` spans
+    with ``staged=0`` and the same ``bytes``, and returns the same rows."""
+    from torch_staging_helpers import plain_staging
+
+    plan, tile_rows = q3_shaped(1 << 12)
+    plain = rows_of(LocalExecutor(plan, tile_rows=tile_rows, device="cpu").run())
+    blocks = plain_staging(monkeypatch)
+    tiles, rows = [], []
+    for i in range(2):
+        with trace.device_profile(str(tmp_path / str(i))):
+            rows.append(rows_of(LocalExecutor(plan, tile_rows=tile_rows, device="cpu").run()))
+        spans = spans_in(str(tmp_path / str(i)))
+        build = [s for s in spans if s[0] == "build"]
+        tiles.append([(int(s[1]["bytes"]), int(s[1]["staged"]), inside(s, build))
+                      for s in spans if s[0] == "tile"])
+        if i == 0:
+            written = sum(int(np.prod(shape)) * dtype.itemsize for shape, dtype in blocks)
+    first, second = tiles
+    assert rows == [plain, plain]
+    assert any(in_build for _, _, in_build in first)  # the orders build side
+    assert sum(staged for _, staged, _ in first) == written > 0
+    assert all(staged == n for n, staged, in_build in first if in_build)
+    assert [(n, 0, b) for n, _, b in first] == second
+    assert sum(int(np.prod(shape)) * dtype.itemsize for shape, dtype in blocks) == written
     assert trace.span_name("k2", {"rows": 8, "widths": (1, 4)}) == "velox.k2[rows=8,widths=1/4]"
 
 

@@ -36,6 +36,12 @@ class Table:
 
     Columns are numpy arrays in the *device representation* already: decimals are
     unscaled int64, dates int32 days, strings int32 codes into ``string_tables``.
+
+    A streaming scan to CUDA (``tiles``) keeps each numeric column's tile as it
+    wrote it into page-locked memory (narrowed, padded) and uploads every later
+    scan of that tile from it.  The kept bytes are shared with the table's
+    ``select`` views, live as long as the table and its views, and go with
+    them; so no column array may be written once a scan has read it.
     """
 
     schema: RowType
@@ -46,6 +52,12 @@ class Table:
     # (reference: dwio/common/Statistics.h column stats)
     _bounds: Dict[str, Optional[tuple]] = dataclasses.field(
         default_factory=dict, repr=False, compare=False
+    )
+    # the streaming scan's page-locked tiles by (id of the column or validity
+    # array, first row, stop row, upload dtype, capacity) -> (array, tensor);
+    # the array is held so that its id is not reused while the entry lives
+    _kept: Dict[tuple, tuple] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
     )
 
     def column_bounds(self, name: str) -> Optional[tuple]:
@@ -81,8 +93,10 @@ class Table:
             {n: t for n, t in self.string_tables.items() if n in names},
             {n: v for n, v in self.validities.items() if n in names},
         )
-        # column statistics stay valid for the projected view
+        # column statistics stay valid for the projected view, and its scans
+        # share the page-locked tiles (keyed by column array)
         out._bounds.update({n: b for n, b in self._bounds.items() if n in names})
+        out._kept = self._kept
         return out
 
     @staticmethod
@@ -144,6 +158,12 @@ class Table:
                 break
         return have
 
+    def _upload_dtype(self, name: str, dtype) -> np.dtype:
+        """The host dtype a non-complex column's tiles ship in: the narrowest
+        its bounds allow (``_narrow_dtype``), as ``Column`` keeps it."""
+        have = np.asarray(self.columns[name])
+        return Column.host_dtype(self._narrow_dtype(name, dtype, have), dtype)
+
     def tile_bytes(self, tile_rows: int) -> int:
         """The bytes ``exec/memory.py batch_bytes`` counts in every tile of
         ``tile_rows`` rows: a tile is padded to ``tile_rows``, and a column's
@@ -155,9 +175,8 @@ class Table:
                 # placeholder (the child pools are not counted)
                 width = 16 if dtype.kind in (TypeKind.ARRAY, TypeKind.MAP) else 1
             else:
-                arr = np.asarray(self.columns[name])
-                narrow = self._narrow_dtype(name, dtype, arr)
-                width = Column.host_dtype(narrow, dtype).itemsize * int(np.prod(arr.shape[1:]))
+                shape = np.shape(self.columns[name])
+                width = self._upload_dtype(name, dtype).itemsize * int(np.prod(shape[1:]))
             total += tile_rows * (width + (self.validities.get(name) is not None))
         return total
 
@@ -171,15 +190,91 @@ class Table:
         kernel reads scale with the data's true range, not its declared type.
         Reference analog: the selective readers' narrow decode paths
         (dwio/common/SelectiveColumnReader.h).  On CUDA the tile is staged in
-        pinned memory and copied with ``non_blocking=True``.  The trace's
-        ``velox.tile`` span holds the tile's bytes (``tile_bytes``).
+        page-locked memory and copied with ``non_blocking=True``; the staging
+        is not kept (``tiles`` keeps it).  The trace's span is
+        ``velox.tile[bytes=N,staged=M]``: N the tile's bytes (``tile_bytes``),
+        M the part of them the call wrote into page-locked memory.
         """
-        with span("tile", lambda: {"bytes": self.tile_bytes(tile_rows)}):
-            return self._tile(index, tile_rows, resolve_device(device))
+        return self._scan(index, tile_rows, resolve_device(device), keep=False)
 
-    def _tile(self, index: int, tile_rows: int, device: torch.device) -> Batch:
+    def tiles(self, tile_rows: int, device=None) -> Iterator[Batch]:
+        """The streaming scan: tile after tile, each numeric column's staging
+        kept for the next scan of the table or of a view of it (the class
+        docstring); a kept tile's span reads ``staged=0``."""
+        device = resolve_device(device)
+        for i in range(self.num_tiles(tile_rows)):
+            yield self._scan(i, tile_rows, device, keep=True)
+
+    def device_tiles(self, tile_rows: int, device=None) -> List[Batch]:
+        """Materialize all tiles device-resident up front (tables live in
+        device memory in this engine's steady state); their staging is not
+        kept, since the tiles stay on the device."""
+        return [
+            self.tile(i, tile_rows, device)
+            for i in range(self.num_tiles(tile_rows))
+        ]
+
+    def kept_bytes(self) -> int:
+        """The page-locked bytes the table and its views keep for their
+        streaming scans."""
+        return sum(t.nbytes for _, t in self._kept.values())
+
+    def _scan(self, index: int, tile_rows: int, device: torch.device, keep: bool) -> Batch:
+        with span("tile", lambda: {
+            "bytes": self.tile_bytes(tile_rows),
+            "staged": self._staged_bytes(index, tile_rows, device, keep),
+        }):
+            return self._tile(index, tile_rows, device, keep)
+
+    def _rows(self, index: int, tile_rows: int) -> tuple:
         start = index * tile_rows
-        stop = min(start + tile_rows, self.num_rows)
+        return start, min(start + tile_rows, self.num_rows)
+
+    def _staged_parts(self, index: int, tile_rows: int) -> Iterator[tuple]:
+        """(array, first row, stop row, upload dtype) of every host array a
+        tile stages in page-locked memory one by one: each numeric column's
+        values and validity."""
+        start, stop = self._rows(index, tile_rows)
+        for name, dtype in zip(self.schema.names, self.schema.types):
+            if dtype.is_complex or np.asarray(self.columns[name]).dtype.kind not in "bif":
+                continue
+            yield self.columns[name], start, stop, self._upload_dtype(name, dtype)
+            validity = self.validities.get(name)
+            if validity is not None:
+                yield validity, start, stop, np.dtype(np.bool_)
+
+    def _staged_bytes(self, index: int, tile_rows: int, device: torch.device, keep: bool) -> int:
+        """The bytes a scan of tile ``index`` writes into page-locked memory:
+        all of ``tile_bytes`` but the columns it finds kept."""
+        if not _stages(device):
+            return 0
+        found = 0
+        if keep:
+            for arr, start, stop, np_dtype in self._staged_parts(index, tile_rows):
+                kept = self._kept.get((id(arr), start, stop, np_dtype, tile_rows))
+                found += 0 if kept is None else kept[1].nbytes
+        return self.tile_bytes(tile_rows) - found
+
+    def _stage(self, arr, start: int, stop: int, np_dtype: np.dtype, rows: int,
+               keep: bool) -> torch.Tensor:
+        """``arr[start:stop]`` as ``np_dtype``, zero-padded to ``rows`` rows,
+        in page-locked memory; with ``keep``, written once and kept, and a
+        fresh block for this scan alone where page-locked memory is refused."""
+        if not keep:
+            return _pinned(np.asarray(arr[start:stop]), np_dtype, rows)
+        key = (id(arr), start, stop, np_dtype, rows)
+        kept = self._kept.get(key)
+        if kept is None:
+            part = np.asarray(arr[start:stop])
+            try:
+                out = _page_locked((rows,) + part.shape[1:], np_dtype)
+            except RuntimeError:
+                return _pinned(part, np_dtype, rows)
+            kept = self._kept[key] = (arr, _fill(out, part))
+        return kept[1]
+
+    def _tile(self, index: int, tile_rows: int, device: torch.device, keep: bool) -> Batch:
+        start, stop = self._rows(index, tile_rows)
         n = max(0, stop - start)
         cols: List[Column] = []
         for name, dtype in zip(self.schema.names, self.schema.types):
@@ -196,17 +291,18 @@ class Table:
                 )
                 continue
             arr = np.asarray(self.columns[name][start:stop])
-            narrow = self._narrow_dtype(name, dtype, arr)
-            if device.type == "cuda" and arr.dtype.kind in "bif":
+            if _stages(device) and arr.dtype.kind in "bif":
                 validity = self.validities.get(name)
                 cols.append(Column.flat(
-                    _pinned(arr, Column.host_dtype(narrow, dtype), tile_rows),
+                    self._stage(self.columns[name], start, stop,
+                                self._upload_dtype(name, dtype), tile_rows, keep),
                     dtype,
                     None if validity is None
-                    else _pinned(validity[start:stop], np.dtype(np.bool_), tile_rows),
+                    else self._stage(validity, start, stop, np.dtype(np.bool_), tile_rows, keep),
                     self.string_tables.get(name),
                 ))
                 continue
+            narrow = self._narrow_dtype(name, dtype, arr)
             if narrow != arr.dtype:
                 arr = arr.astype(narrow)
             if n < tile_rows:
@@ -231,18 +327,6 @@ class Table:
         if device.type == "cuda":
             batch = _pin(batch).to(device, non_blocking=True)
         return batch
-
-    def tiles(self, tile_rows: int, device=None) -> Iterator[Batch]:
-        for i in range(self.num_tiles(tile_rows)):
-            yield self.tile(i, tile_rows, device)
-
-    def device_tiles(self, tile_rows: int, device=None) -> List[Batch]:
-        """Materialize all tiles device-resident up front (tables live in
-        device memory in this engine's steady state)."""
-        return [
-            self.tile(i, tile_rows, device)
-            for i in range(self.num_tiles(tile_rows))
-        ]
 
     # ---- pandas ----------------------------------------------------------
     def to_pandas(self, decode: bool = True):
@@ -571,18 +655,35 @@ class Table:
         return Table(RowType(names, types), cols, tables, validities)
 
 
-def _pinned(arr: np.ndarray, np_dtype: np.dtype, rows: int) -> torch.Tensor:
-    """``arr`` cast to ``np_dtype`` and zero-padded to ``rows`` rows, written
-    once into page-locked memory from torch's caching host allocator (a block
-    is reused once its upload is done): no host temporaries to allocate and
-    fault in.  One thread: on a shared host, torch's parallel copy and fill
-    spread the query times wider than they saved."""
+def _stages(device: torch.device) -> bool:
+    """Whether a scan to ``device`` stages its numeric columns in page-locked
+    memory (``_stage``) before the upload."""
+    return device.type == "cuda"
+
+
+def _page_locked(shape: tuple, np_dtype: np.dtype) -> torch.Tensor:
+    """An uninitialised page-locked block from torch's caching host
+    allocator (a block is reused once its tensor is freed and its upload
+    done)."""
     torch_dtype = torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
-    out = torch.empty((rows,) + arr.shape[1:], dtype=torch_dtype, pin_memory=True)
+    return torch.empty(shape, dtype=torch_dtype, pin_memory=True)
+
+
+def _fill(out: torch.Tensor, arr: np.ndarray) -> torch.Tensor:
+    """``out`` holding ``arr`` cast to its dtype, zero-padded to its rows,
+    written once: no host temporaries to allocate and fault in.  One thread:
+    on a shared host, torch's parallel copy and fill spread the query times
+    wider than they saved."""
     view = out.numpy()
     np.copyto(view[: arr.shape[0]], arr, casting="unsafe")
     view[arr.shape[0]:] = 0
     return out
+
+
+def _pinned(arr: np.ndarray, np_dtype: np.dtype, rows: int) -> torch.Tensor:
+    """``arr`` cast to ``np_dtype`` and zero-padded to ``rows`` rows in a
+    fresh page-locked block."""
+    return _fill(_page_locked((rows,) + arr.shape[1:], np_dtype), arr)
 
 
 def _pin(batch: Batch) -> Batch:
