@@ -3867,7 +3867,6 @@ def sort_mode_report(ex):
                     build_keys=j.n_valid_build_keys, key_range=j.key_range,
                     packed_payload=j.bp_plan is not None,
                     fused=j._fused_static(ex.capacity) is not None,
-                    device_build=j.build_valid is not None,
                     state_bytes=j.state_bytes()) for j in joins],
     )
 

@@ -110,11 +110,11 @@ def test_default_device_raises_without_cuda():
 
 
 def test_join_and_collect_entry_points_raise_without_cuda():
-    """Joins, collect pipelines and the host build resolve ``device=None`` to
-    CUDA like every other entry point; with ``device="cpu"`` the build sides'
+    """Joins, collect pipelines and a host table's upload for a join build
+    resolve ``device=None`` to CUDA like every other entry point; with ``device="cpu"`` the build sides'
     sub-executors run on the CPU too (they take the parent's device)."""
     from velox_tpu_torch.exec.joins import HashJoinExec
-    from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.exec.runner import LocalExecutor, table_batches
     from velox_tpu_torch.plan import PlanBuilder
 
     if torch.cuda.is_available():
@@ -131,7 +131,7 @@ def test_join_and_collect_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LocalExecutor(PlanBuilder().table_scan(table).build())
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        HashJoinExec.build(join.source, table)
+        HashJoinExec.build(join.source, *table_batches(table, 1024))
     ex = LocalExecutor(join, device="cpu")
     assert ex.run().num_rows == 8
     [step] = [s for s in ex.lin.steps if s[0] == "join"]

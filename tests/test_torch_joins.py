@@ -1,6 +1,6 @@
 """The unique-build sort-merge join of the port against the JAX package's, on
-the same numpy inputs: key normalization, the host and the device-resident
-build, the fused probe and the classification probe, and whole join plans
+the same numpy inputs: key normalization, the device build (from a collect
+pipeline's tiles and from an aggregation's uploaded result), the fused probe and the classification probe, and whole join plans
 through both ``LocalExecutor``s (INNER / LEFT / LEFT_SEMI / ANTI, one- and
 two-column keys, NULL keys, probe keys outside the build range, an empty build
 side).  Every column agrees exactly: the joins move values, they compute none
@@ -180,10 +180,10 @@ def test_empty_build_side(join_type):
 
 @pytest.mark.parametrize("join_type", ["inner", "left"])
 def test_host_build_from_an_aggregated_build_side(join_type):
-    """A build side that ends in an aggregation cannot stay device-resident:
-    it is executed to a host Table and ``HashJoinExec.build`` sorts it there
-    (TPC-H Q13's shape).  The aggregation above the join then groups on the
-    join's output."""
+    """A build side that ends in an aggregation is executed to a host Table,
+    uploaded, and ``HashJoinExec.build`` sorts it on the device like any
+    other (TPC-H Q13's shape).  The aggregation above the join then groups on
+    the join's output."""
     (ref_p, port_p), (ref_b, port_b) = _data()
 
     def plan(builder, probe, build):
@@ -258,10 +258,10 @@ def test_right_join_flips_and_inner_filter_lowers():
 
 
 def test_what_is_not_ported_raises_by_name():
-    """What the unique-build slice refused now runs (a duplicate-key build on
-    either build path, a LEFT join's filter) and gives the JAX package's
-    rows; FULL joins and the lowerings that need UNION ALL still raise by
-    name."""
+    """What the unique-build slice refused now runs (a duplicate-key build
+    from a scan or from an aggregation, a LEFT join's filter) and gives the
+    JAX package's rows; FULL joins and the lowerings that need UNION ALL
+    still raise by name."""
     (ref_p, port_p), (ref_b, port_b) = _data()
 
     def plans(builder, p, b):
@@ -271,8 +271,8 @@ def test_what_is_not_ported_raises_by_name():
         return {
             # b2 alone repeats: the build side needs the expansion join
             "dup": scan_p().hash_join(scan_b(), ["p2"], ["b2"], output=["p1", "bval"]),
-            # ... on the host build path too
-            "dup_host": scan_p().hash_join(agg_b, ["p2"], ["b2"], output=["p1"]),
+            # ... from an aggregated build side too
+            "dup_agg": scan_p().hash_join(agg_b, ["p2"], ["b2"], output=["p1"]),
             "left_filter": scan_p().hash_join(
                 scan_b(), ["p1"], ["b1"], output=["p1", "pv", "bval"], join_type="left",
                 filter="pv > bval",
@@ -286,12 +286,18 @@ def test_what_is_not_ported_raises_by_name():
         port = PortExecutor(port_plans[name].orderby(keys).build(), tile_rows=1 << 11, device="cpu")
         assert [s[0] for s in port._all_steps] == [s[0] for s in ref._all_steps], name
         _same_table(port.run(), ref.run())
-    # the device-resident build signals the duplicates; the executor then
-    # builds the per-key runs on the host
+    # the device build finds the duplicates and holds the per-key runs:
+    # each valid slot's run start and length over the sorted b2 values
     dup = plans(PortBuilder, port_p, port_b)["dup"].build()
-    built = PortExecutor(dup.right, device="cpu").run_device()
-    with pytest.raises(port_joins.DuplicateBuildKeys, match="host path"):
-        port_joins.HashJoinExec.build_from_device(dup, *built)
+    built = port_joins.HashJoinExec.build(dup, *PortExecutor(dup.right, device="cpu").run_device())
+    b2 = np.sort(port_b.columns["b2"])
+    starts = np.flatnonzero(np.concatenate([[True], b2[1:] != b2[:-1]]))
+    lengths = np.diff(np.append(starts, len(b2)))
+    assert built.expansion and built.n_valid_build_keys == N_BUILD
+    assert built.build_size == 1024 and int(built.build_valid.sum()) == N_BUILD
+    np.testing.assert_array_equal(built.build_keys[:N_BUILD].numpy(), b2)
+    np.testing.assert_array_equal(built.run_start[:N_BUILD].numpy(), np.repeat(starts, lengths))
+    np.testing.assert_array_equal(built.run_count[:N_BUILD].numpy(), np.repeat(lengths, lengths))
     scan_p = lambda: PortBuilder().table_scan(port_p)  # noqa: E731
     scan_b = lambda: PortBuilder().table_scan(port_b)  # noqa: E731
     # FULL joins and the lowerings that needed UNION ALL now run too (their
@@ -332,12 +338,15 @@ def test_normalized_key(los, his):
         a = (lo + (rng.random(n) * (float(hi) - float(lo))).astype(np.int64)).astype(np.int64)
         a[0], a[1] = lo, hi
         arrays.append(np.clip(a, lo, hi))
-    g_hi, g_lo = got.pack_host_limbs(arrays)
+    (g_hi, g_lo), ok = got.pack_device_limbs(
+        [torch.as_tensor(a) for a in arrays], torch.ones(n, dtype=torch.bool)
+    )
     w_hi, w_lo = want.pack_host_limbs(arrays)
-    np.testing.assert_array_equal(g_lo, w_lo)
+    assert bool(ok.all())
+    np.testing.assert_array_equal(g_lo.numpy(), w_lo)
     assert (g_hi is None) == (w_hi is None)
     if g_hi is not None:
-        np.testing.assert_array_equal(g_hi, w_hi)
+        np.testing.assert_array_equal(g_hi.numpy(), w_hi)
     # device packing: rows out of range or invalid pack to -1 in every limb
     probe = [a.copy() for a in arrays]
     if his[0] < (1 << 62):

@@ -291,3 +291,35 @@ def test_descending_host_sort_over_int64_minimum():
     ex = LocalExecutor(plan(PlanBuilder, port), device="cpu")
     ex._device_sort = None  # the host finisher, as a TopN over aggregates takes it
     assert ex.run().columns["v"].tolist() == sorted(v.tolist(), reverse=True)
+
+
+# ---------------------------------------------------------------------------
+# NOT IN over a build side that repeats a value
+
+
+def test_not_in_over_repeated_build_values():
+    """``x NOT IN (2, 2, 3)``: the build side holds no NULL, so 1 and 4 pass.
+    The device build counted the NULL-key rows as the live rows less the
+    DISTINCT valid keys, so a repeated value read as a NULL and emptied the
+    result; it now counts the live rows whose key is NULL.  The JAX package
+    keeps the fault (its empty result asserted beside the right one)."""
+    probe_x = np.array([1, 2, 3, 4], dtype=np.int64)
+    build_y = np.array([2, 2, 3], dtype=np.int64)
+
+    def plan(builder, probe, build):
+        return (
+            builder().table_scan(probe)
+            .hash_join(builder().table_scan(build), ["x"], ["y"], output=["x"],
+                       join_type="anti", null_aware=True)
+            .orderby(["x"]).build()
+        )
+
+    port = plan(PlanBuilder, table_from_numpy(["x"], ["BIGINT"], {"x": probe_x}),
+                table_from_numpy(["y"], ["BIGINT"], {"y": build_y}))
+    ref = plan(RefBuilder, RefTable(vt.RowType(["x"], [vt.BIGINT]), {"x": probe_x}),
+               RefTable(vt.RowType(["y"], [vt.BIGINT]), {"y": build_y}))
+    ex = LocalExecutor(port, device="cpu")
+    [join] = [s[1] for s in ex.lin.steps if s[0] == "join"]
+    assert not join.build_has_null_key and join.n_valid_build_keys == 2
+    assert ex.run().columns["x"].tolist() == [1, 4]
+    assert RefExecutor(ref).run().num_rows == 0  # the JAX package's rows

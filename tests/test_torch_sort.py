@@ -219,7 +219,8 @@ def test_collect_sorted_plan_matches_reference(finish, tile_rows):
 
 def test_plain_collect_and_run_device():
     """No finisher: rows come back in scan order, tile by tile; ``run_device``
-    keeps the same rows on the device as compacted batches."""
+    keeps the same rows on the device as compacted batches.  An aggregation's
+    ``run_device`` uploads what ``run`` returns, in one tile."""
     ref_t, port_t = _tables()
     plan = lambda b, t: b().table_scan(t, filter="z < 2").project(["a", "x", "s"]).build()  # noqa: E731
     port = PortExecutor(plan(PortBuilder, port_t), tile_rows=1 << 10, device="cpu")
@@ -231,7 +232,13 @@ def test_plain_collect_and_run_device():
     assert len(batches) == len(errs) == 3 and all(b.selection is None for b in batches)
     assert sum(int(b.length) for b in batches) == int(keep.sum())
     agg = PortBuilder().table_scan(port_t).aggregation(["a"], ["count(*) as n"]).build()
-    assert PortExecutor(agg, device="cpu").run_device() is None
+    agg_ex = PortExecutor(agg, device="cpu")
+    [tile], errs = agg_ex.run_device()
+    want = agg_ex.run()
+    assert errs == () and tile.capacity == 1024 and int(tile.length) == want.num_rows
+    for name in ("a", "n"):
+        values, _ = tile.column(name).decode(tile.capacity)
+        np.testing.assert_array_equal(values[: want.num_rows].numpy(), want.columns[name])
 
 
 def test_string_key_without_a_dictionary_falls_back_to_the_host_finisher():

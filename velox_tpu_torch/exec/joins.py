@@ -9,7 +9,8 @@ This pass keeps the JAX package's algorithm, a **sort-merge lookup**, so that
 every function can be held against its twin (a hash probe written for the GPU
 is a later change, measured against this one):
 
-  1. build side: key-sorted tensors, device-resident (the JoinBridge analog);
+  1. build side: key-sorted tensors, sorted and kept on the device (the
+     JoinBridge analog; ``HashJoinExec.build``);
   2. per probe tile: sort the concatenation [build keys ++ probe keys] with a
      tie-break flag so each build row precedes equal probe keys;
   3. "the last build row at or before this one" (the reference's running
@@ -35,8 +36,8 @@ DUPLICATE keys becomes an **expansion join**: the build keeps per-key runs
 build array (``probe_spans``), and ``expand`` writes one output row per
 (probe row, matching build row) pair into a power-of-two output bucket that
 the executor sizes by one scalar read a tile (ops/segpool.py).  A FULL join
-is always an expansion join built on the host: its build keeps the null-key
-rows (under a sentinel key that equals nothing) and the right key columns;
+is always an expansion join: its build keeps the null-key rows (under a
+sentinel key that equals nothing) and the right key columns;
 each tile's spans also flag the build rows it matched (``probe_spans``), and
 after the last tile ``full_tail`` emits the build rows no tile matched, with
 the probe side NULL.  LEFT_SEMI and ANTI deduplicate the build keys, so any
@@ -59,8 +60,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..io.table import Table
-from ..ops.segmented import last_flagged
+from ..ops.segmented import last_flagged, next_flagged
 from ..ops.sortkey import sort_operands
 from ..plan.nodes import HashJoinNode, JoinType
 from ..vector.column import Batch, Column, _take_clamped as _take
@@ -68,11 +68,6 @@ from ..vector.column import Batch, Column, _take_clamped as _take
 
 class JoinBuildError(RuntimeError):
     pass
-
-
-class DuplicateBuildKeys(JoinBuildError):
-    """Signals the device-resident build path that the build side needs
-    expansion-join state; the caller falls back to the host build."""
 
 
 def _not_ported(name: str, what: str):
@@ -165,21 +160,6 @@ class _NormalizedKey:
         for arr, lo, sh in zip(key_arrays, self.mins, self.shifts):
             out += (arr.astype(np.int64) - lo) << sh
         return out
-
-    def pack_host_limbs(self, key_arrays: Sequence[np.ndarray]):
-        """(hi|None, lo) packed host keys."""
-        if not self.two_limb:
-            return None, self.pack_host(key_arrays)
-        n = len(key_arrays[0])
-        hi = np.zeros(n, dtype=np.int64)
-        lo_arr = np.zeros(n, dtype=np.int64)
-        for i, (arr, mn, sh) in enumerate(zip(key_arrays, self.mins, self.shifts)):
-            term = (arr.astype(np.int64) - mn) << sh
-            if i < self.split:
-                hi += term
-            else:
-                lo_arr += term
-        return hi, lo_arr
 
     def pack_device(self, key_values: Sequence[torch.Tensor], valid: torch.Tensor):
         """Single-limb packed keys: (packed [cap] int64, in_range & valid);
@@ -286,7 +266,7 @@ class HashJoinExec:
     build_size: int
     build_tables: Dict[str, object]
     normalizer: Optional[_NormalizedKey]  # None for single raw int64 key
-    build_valid: Optional[torch.Tensor] = None  # [B] live-slot mask (device builds)
+    build_valid: torch.Tensor  # [B] live-slot mask
     # expansion (N:M) join state: per sorted-build-slot run info
     expansion: bool = False
     run_start: Optional[torch.Tensor] = None  # [B] first slot of this key's run
@@ -375,144 +355,20 @@ class HashJoinExec:
             )
 
     @staticmethod
-    def build(node: HashJoinNode, build_result: Table, device=None) -> "HashJoinExec":
-        """Construct the bridge from the executed build-side pipeline result
-        (a host Table); the sorted build state is placed on ``device``."""
-        from ..device import resolve_device
+    def build(node: HashJoinNode, batches: Sequence[Batch], err_scalars) -> "HashJoinExec":
+        """Construct the bridge from the build side's device batches (a
+        collect pipeline's compacted tiles, or a host table's upload) and
+        their per-tile error scalars.  The build is sorted on the batches'
+        device; a handful of scalars (the counts, the error count, key and
+        column ranges) are fetched in one read, two for a multi-column key,
+        whose ranges size the packing.
 
-        device = resolve_device(device)
-        HashJoinExec._check_node(node)
-        key_names = list(node.right_keys)
-        key_arrays = [np.asarray(build_result.columns[k]) for k in key_names]
-
-        # Build rows with a NULL key can never match (standard, non-null-aware
-        # join semantics; reference HashBuild drops them too for inner/semi
-        # joins).  For FULL they must survive as rows that match nothing, so
-        # they keep a sentinel key that sorts last and equals nothing.
-        keep = None
-        for k in key_names:
-            validity = build_result.validities.get(k)
-            if validity is not None and not validity.all():
-                keep = validity if keep is None else (keep & validity)
-        full = node.join_type == JoinType.FULL
-        if keep is not None and not full:
-            key_arrays = [a[keep] for a in key_arrays]
-
-        if len(key_names) == 1:
-            normalizer = None
-            packed_hi, packed = None, key_arrays[0].astype(np.int64)
-        else:
-            fit_arrays = [a[keep] for a in key_arrays] if keep is not None else key_arrays
-            normalizer = _NormalizedKey.fit(fit_arrays)
-            packed_hi, packed = normalizer.pack_host_limbs(key_arrays)
-        if keep is not None and full:
-            packed = packed.copy()
-            packed[~keep] = _KEY_SENTINEL
-            if packed_hi is not None:
-                packed_hi = packed_hi.copy()
-                packed_hi[~keep] = _KEY_SENTINEL
-
-        if packed_hi is None:
-            order = np.argsort(packed, kind="stable")
-        else:
-            order = np.lexsort((packed, packed_hi))
-        row_order = order if keep is None or full else np.flatnonzero(keep)[order]
-        keys_sorted = packed[order]
-        keys_hi_sorted = None if packed_hi is None else packed_hi[order]
-
-        if len(keys_sorted) > 1:
-            eq = keys_sorted[1:] == keys_sorted[:-1]
-            if keys_hi_sorted is not None:
-                eq = eq & (keys_hi_sorted[1:] == keys_hi_sorted[:-1])
-        else:
-            eq = np.zeros(0, dtype=bool)
-
-        jt = node.join_type
-        expansion = False
-        run_start = run_count = None
-        if jt in (JoinType.LEFT_SEMI, JoinType.ANTI):
-            # Only existence matters; deduplicate so any build side works.
-            first = (
-                np.concatenate([[True], ~eq]) if len(keys_sorted) else np.zeros(0, bool)
-            )
-            keys_sorted = keys_sorted[first]
-            if keys_hi_sorted is not None:
-                keys_hi_sorted = keys_hi_sorted[first]
-            row_order = row_order[first]
-        elif full or eq.any():
-            # duplicate keys, or FULL (which always needs the expansion
-            # machinery for its unmatched-build tail): keep per-key runs
-            if keys_hi_sorted is not None:
-                raise JoinBuildError(
-                    "N:M / FULL joins with composite keys wider than 62 bits are "
-                    "not supported; pre-aggregate the build side"
-                )
-            expansion = True
-            n = len(keys_sorted)
-            boundary = np.concatenate([[True], ~eq])
-            starts = np.flatnonzero(boundary)
-            lengths = np.diff(np.append(starts, n))
-            run_start = torch.as_tensor(np.repeat(starts, lengths).astype(np.int64), device=device)
-            run_count = torch.as_tensor(np.repeat(lengths, lengths).astype(np.int64), device=device)
-
-        cols: Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
-        bounds_map: Dict[str, Tuple[int, int]] = {}
-        right_schema = node.right.output_schema
-        for name in node.output_columns:
-            # FULL keeps the right KEY columns too: the unmatched-build tail
-            # emits the real key values, not probe-side copies
-            if name in right_schema and (name not in key_names or full):
-                arr = np.asarray(build_result.columns[name])[row_order]
-                validity = build_result.validities.get(name)
-                if len(arr) and (
-                    np.issubdtype(arr.dtype, np.integer) or arr.dtype == np.bool_
-                ):
-                    src = arr if validity is None else arr[validity[row_order]]
-                    if len(src):
-                        bounds_map[name] = (int(src.min()), int(src.max()))
-                v = (
-                    None
-                    if validity is None
-                    else torch.as_tensor(validity[row_order].copy(), device=device)
-                )
-                cols[name] = (torch.as_tensor(arr.copy(), device=device), v)
-        # (min, max) over the valid keys: sorted ascending, with the
-        # sentinels (FULL null-key rows) last
-        n_valid_keys = len(keys_sorted) - int(np.sum(keys_sorted == _KEY_SENTINEL))
-        key_range = (
-            (int(keys_sorted[0]), int(keys_sorted[n_valid_keys - 1]))
-            if n_valid_keys and keys_hi_sorted is None
-            else None
-        )
-        exec_ = HashJoinExec(
-            node,
-            torch.as_tensor(keys_sorted.copy(), device=device),
-            cols,
-            len(keys_sorted),
-            dict(build_result.string_tables),
-            normalizer,
-            key_range=key_range,
-            build_keys_hi=(
-                None
-                if keys_hi_sorted is None
-                else torch.as_tensor(keys_hi_sorted.copy(), device=device)
-            ),
-            build_has_null_key=keep is not None,
-            n_valid_build_keys=n_valid_keys,
-            expansion=expansion,
-            run_start=run_start,
-            run_count=run_count,
-        )
-        if not expansion:
-            exec_._prepare_build_payload(bounds_map)
-        return exec_
-
-    @staticmethod
-    def build_from_device(node: HashJoinNode, batches, err_scalar) -> "HashJoinExec":
-        """Construct the bridge from device-resident compacted tile batches —
-        the build data never round-trips to the host; only a handful of scalars
-        (row count, duplicate count, key and column ranges) are fetched, in
-        one read (two for a multi-column key, whose ranges size the packing).
+        The sorted state is a power-of-two bucket: the valid keys, then (FULL
+        only) the live rows with a NULL key under a sentinel that equals
+        nothing, then dead slots; ``build_valid`` marks the rows kept.  Build
+        rows with a NULL key never match (standard, non-null-aware join
+        semantics; the reference's HashBuild drops them too).  Duplicate
+        keys, or a FULL join, keep per-key runs for the expansion probe.
         """
         from ..utils.transfer import bucket_of, fetch_tree
         from .runner import _raise_on_errors
@@ -521,12 +377,15 @@ class HashJoinExec:
         right_schema = node.right.output_schema
         key_names = list(node.right_keys)
         semi = node.join_type in (JoinType.LEFT_SEMI, JoinType.ANTI)
+        full = node.join_type == JoinType.FULL
+        # FULL keeps the right KEY columns too: the unmatched-build tail
+        # emits the real key values, not probe-side copies
         col_names = (
             []
             if semi
             else [
                 n for n in node.output_columns
-                if n in right_schema and n not in key_names
+                if n in right_schema and (full or n not in key_names)
             ]
         )
         strings: Dict[str, object] = {}
@@ -573,31 +432,31 @@ class HashJoinExec:
             normalizer = None
             packed_hi, packed = None, keys[0]
 
-        err = err_scalar
-        if isinstance(err, (tuple, list)):
-            err = torch.zeros((), dtype=torch.int64, device=device)
-            for e in err_scalar:
-                err = err + e
+        err = torch.zeros((), dtype=torch.int64, device=device)
+        for e in err_scalars:
+            err = err + e
         sentinel = torch.full_like(packed, _KEY_SENTINEL)
         packed = torch.where(kvalid, packed, sentinel)
         n_rows = packed.shape[0]
         orig = _iota(n_rows, device)
+        # 0: a valid key, 1: a live row with a NULL key, 2: a dead slot
+        rank = (~kvalid).to(torch.uint8) + (~mask).to(torch.uint8)
         if packed_hi is None:
-            s_inv, s_key, s_orig = sort_operands((~kvalid, packed, orig), num_keys=2)
+            s_rank, s_key, s_orig = sort_operands((rank, packed, orig), num_keys=2)
             s_hi = None
         else:
             packed_hi = torch.where(kvalid, packed_hi, sentinel)
-            s_inv, s_hi, s_key, s_orig = sort_operands(
-                (~kvalid, packed_hi, packed, orig), num_keys=3
+            s_rank, s_hi, s_key, s_orig = sort_operands(
+                (rank, packed_hi, packed, orig), num_keys=3
             )
-        s_valid = ~s_inv
+        s_valid = s_rank == 0
         prev_eq = s_valid & torch.roll(s_valid, 1) & (s_key == torch.roll(s_key, 1))
         if s_hi is not None:
             prev_eq = prev_eq & (s_hi == torch.roll(s_hi, 1))
         if n_rows:
             prev_eq[0] = False
         kmin, kmax = _masked_min_max(s_key, s_valid)
-        n_live = mask.sum()
+        n_null = (mask & ~kvalid).sum()
         cols: Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
         int_cols: List[str] = []
         col_stats: List[torch.Tensor] = []
@@ -632,40 +491,55 @@ class HashJoinExec:
             if col_stats
             else torch.zeros((0,), dtype=torch.int64, device=device)
         )
-        n_valid, dup, err, kmin, kmax, n_live, st = fetch_tree(
-            (n_valid, dup, err, kmin, kmax, n_live, stats_vec)
+        n_valid, dup, err, kmin, kmax, n_null, st = fetch_tree(
+            (n_valid, dup, err, kmin, kmax, n_null, stats_vec)
         )  # the build's one host read
         _raise_on_errors(int(err))
-        if int(dup):
-            raise DuplicateBuildKeys(
-                f"the build side of {node.id} holds {int(dup)} duplicate key(s); "
-                "expansion state is built on the host path"
+        n, n_null = int(n_valid), int(n_null)
+        expansion = full or int(dup) > 0
+        if expansion and s_hi is not None:
+            raise JoinBuildError(
+                "N:M / FULL joins with composite keys wider than 62 bits are "
+                "not supported; pre-aggregate the build side"
             )
-        n = int(n_valid)
-        bounds_map = {
-            nm: (int(st[2 * i]), int(st[2 * i + 1]))
-            for i, nm in enumerate(int_cols)
-            if n and st[2 * i] <= st[2 * i + 1]
-        }
-        bucket = min(bucket_of(max(n, 1)), n_rows)
-        valid = _iota(bucket, device) < n
+        live = n + n_null if full else n
+        bucket = min(bucket_of(max(live, 1)), n_rows)
+        slot = _iota(bucket, device)
         cut_sentinel = sentinel[:bucket]
-        keys_cut = torch.where(valid, s_key[:bucket], cut_sentinel)
+        keys_cut = torch.where(slot < n, s_key[:bucket], cut_sentinel)
         keys_hi_cut = (
-            None if s_hi is None else torch.where(valid, s_hi[:bucket], cut_sentinel)
+            None if s_hi is None else torch.where(slot < n, s_hi[:bucket], cut_sentinel)
         )
+        run_start = run_count = None
+        if expansion:
+            # a run of equal keys starts at the last boundary at or before a
+            # slot and ends at the first run end at or after it; slots past
+            # the valid keys are runs of one
+            starts = ~prev_eq[:bucket]
+            ends = torch.ones_like(starts)
+            ends[:-1] = starts[1:]
+            run_start = last_flagged(starts, slot, -1)
+            run_count = next_flagged(ends, slot, bucket) - run_start + 1
         out_cols = {
             name: (g[:bucket].clone(), None if gv is None else gv[:bucket].clone())
             for name, (g, gv) in cols.items()
         }
         exec_ = HashJoinExec(
-            node, keys_cut, out_cols, bucket, strings, normalizer, valid,
+            node, keys_cut, out_cols, bucket, strings, normalizer, slot < live,
+            expansion=expansion,
+            run_start=run_start,
+            run_count=run_count,
             key_range=((int(kmin), int(kmax)) if n and keys_hi_cut is None else None),
             build_keys_hi=keys_hi_cut,
-            build_has_null_key=int(n_live) > n,
+            build_has_null_key=n_null > 0,
             n_valid_build_keys=n,
         )
-        if bounds_map and n and not semi:
+        if not expansion:
+            bounds_map = {
+                nm: (int(st[2 * i]), int(st[2 * i + 1]))
+                for i, nm in enumerate(int_cols)
+                if n and st[2 * i] <= st[2 * i + 1]
+            }
             exec_._prepare_build_payload(bounds_map)
         return exec_
 
@@ -690,15 +564,6 @@ class HashJoinExec:
         B = self.build_size
         dev = probe_keys.device
         jt = self.node.join_type
-        if B == 0:
-            nothing = torch.zeros((cap,), dtype=torch.bool, device=dev)
-            keeps_all = jt in (JoinType.ANTI, JoinType.LEFT)
-            return (
-                _iota(cap, dev),
-                torch.zeros((cap,), dtype=torch.int64, device=dev),
-                nothing,
-                probe_live if keeps_all else nothing,
-            )
         all_keys = torch.cat([self.build_keys, probe_keys])
         n_all = B + cap
         idxb = _index_bits(max(B, cap))
@@ -742,9 +607,8 @@ class HashJoinExec:
         hit = (p_s == 1) & (last_build >= 0) & (_take(self.build_keys, cand) == k_s)
         if h_s is not None:
             hit = hit & (_take(self.build_keys_hi, cand) == h_s)
-        if self.build_valid is not None:
-            # device builds pad to a bucket; sentinel tail slots never match
-            hit = hit & _take(self.build_valid, cand)
+        # the build pads to a bucket; its dead slots never match
+        hit = hit & _take(self.build_valid, cand)
         # null/out-of-range probe keys never match
         ok_s = _take(key_ok, o_s)
         hit = hit & ok_s
@@ -798,12 +662,6 @@ class HashJoinExec:
         jt = self.node.join_type
         (_, probe_keys), _, key_ok, _ = self._probe_keys(batch)
         live = batch.active_mask()
-        if B == 0:
-            # only a FULL join keeps an empty build side on this path
-            none = torch.zeros((cap,), dtype=torch.int64, device=dev)
-            sizes = live.to(torch.int64)
-            return (sizes, none, torch.zeros((cap,), dtype=torch.bool, device=dev),
-                    sizes.sum(), torch.zeros((0,), dtype=torch.bool, device=dev))
         all_keys = torch.cat([self.build_keys, probe_keys])
         is_probe = torch.cat(
             [torch.zeros((B,), dtype=torch.int64, device=dev),
@@ -828,6 +686,7 @@ class HashJoinExec:
         last_build = _last_build_row(p_s, o_s)
         cand = last_build.clamp(0, B - 1)
         hit_s = (p_s == 1) & (last_build >= 0) & (_take(self.build_keys, cand) == k_s)
+        hit_s = hit_s & _take(self.build_valid, cand)  # dead slots never match
         # back to the batch's row order: probe rows hold distinct row ids, so
         # a scatter places each one (build rows go to a spare slot); the JAX
         # package sorts again by (is_build, row id) to the same effect
@@ -870,7 +729,7 @@ class HashJoinExec:
         rowid = owner_rows(out_starts, out_cap)
         pos = _iota(out_cap, batch.device)
         offset = pos - _take(out_starts, rowid)
-        build_pos = (_take(run_starts, rowid) + offset).clamp(0, max(self.build_size - 1, 0))
+        build_pos = (_take(run_starts, rowid) + offset).clamp(0, self.build_size - 1)
         row_hit = _take(hit, rowid)
 
         left_schema = node.left.output_schema
@@ -887,13 +746,6 @@ class HashJoinExec:
                 out_cols.append(
                     Column.flat(_take(values, rowid).to(dtype.device_dtype), dtype, gv, src.strings)
                 )
-            elif self.build_size == 0:
-                out_cols.append(Column.flat(
-                    torch.zeros((out_cap,), dtype=dtype.device_dtype, device=batch.device),
-                    dtype,
-                    torch.zeros((out_cap,), dtype=torch.bool, device=batch.device),
-                    self.build_tables.get(name),
-                ))
             else:
                 values, validity = self.build_cols[name]
                 g = _take(values, build_pos)
@@ -917,34 +769,30 @@ class HashJoinExec:
     def full_tail(self, matched: torch.Tensor) -> Batch:
         """The FULL join's last batch: the build rows no tile matched (the
         null-key rows among them), compacted to the front, the probe side
-        NULL.  Its capacity is the build size (at least one row)."""
+        NULL.  Its capacity is the build size."""
         from ..ops.compact import compaction_indices
 
         node = self.node
         B = self.build_size
         dev = self.device
-        cap = max(B, 1)
-        unmatched = ~matched
-        if self.build_valid is not None:
-            unmatched = unmatched & self.build_valid
-        perm, count = compaction_indices(unmatched)
+        perm, count = compaction_indices(~matched & self.build_valid)
         left_schema = node.left.output_schema
         out_cols: List[Column] = []
         for name, dtype in zip(node.output_schema.names, node.output_schema.types):
-            if name in self.build_cols and B > 0:
+            if name in self.build_cols:
                 values, validity = self.build_cols[name]
                 g = _take(values, perm)
                 gv = None if validity is None else _take(validity, perm)
                 out_cols.append(Column.flat(g, dtype, gv, self.build_tables.get(name)))
-            elif name in self.build_cols or name in left_schema:
+            elif name in left_schema:
                 out_cols.append(Column.flat(
-                    torch.zeros((cap,), dtype=dtype.device_dtype, device=dev),
+                    torch.zeros((B,), dtype=dtype.device_dtype, device=dev),
                     dtype,
-                    torch.zeros((cap,), dtype=torch.bool, device=dev),
+                    torch.zeros((B,), dtype=torch.bool, device=dev),
                 ))
             else:
                 raise KeyError(f"FULL join: no build column for {name!r}")
-        return Batch(tuple(out_cols), count, None, node.output_schema, cap)
+        return Batch(tuple(out_cols), count, None, node.output_schema, B)
 
     # ---- fused probe ----------------------------------------------------
     def _probe_fused(self, batch: Batch) -> Optional[Batch]:
@@ -1226,12 +1074,8 @@ class HashJoinExec:
                 )
             else:
                 values, validity = self.build_cols[name]
-                if self.build_size == 0:
-                    gathered = torch.zeros((cap,), dtype=dtype.device_dtype, device=dev)
-                    gv = torch.zeros((cap,), dtype=torch.bool, device=dev)
-                else:
-                    gathered = _take(values, pos)
-                    gv = None if validity is None else _take(validity, pos)
+                gathered = _take(values, pos)
+                gv = None if validity is None else _take(validity, pos)
                 if jt == JoinType.LEFT:
                     gv = hit if gv is None else (gv & hit)
                 out_cols.append(

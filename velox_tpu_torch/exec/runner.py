@@ -1427,6 +1427,13 @@ def _pick_capacity(num_rows: int, tile_rows: int) -> int:
     return cap
 
 
+def table_batches(table: Table, tile_rows: int, device=None):
+    """A host table as the device batches a join build takes
+    (``HashJoinExec.build(node, *table_batches(...))``): tiles sized to its
+    rows, at most ``tile_rows`` each, and no error scalars."""
+    return table.device_tiles(_pick_capacity(table.num_rows, tile_rows), device), ()
+
+
 @dataclasses.dataclass
 class RunStats:
     """Per-run counters (reference: TaskStats, velox/exec/TaskStats.h:30).
@@ -1474,7 +1481,6 @@ class LocalExecutor:
     ):
         from ..config import DEFAULT_CONFIG
         from .joins import (
-            DuplicateBuildKeys,
             HashJoinExec,
             rewrite_filtered_existence_joins,
             rewrite_left_filter_nm,
@@ -1553,18 +1559,7 @@ class LocalExecutor:
             try:
                 with span("build"):
                     sub = self._sub_executor(node.right)
-                    # a FULL join's build is the host's: it keeps the null-key
-                    # rows and the right key columns for the unmatched-build tail
-                    built = None if node.join_type == JoinType.FULL else sub.run_device()
-                    exec_ = None
-                    if built is not None:
-                        # build data stays in device memory end to end
-                        try:
-                            exec_ = HashJoinExec.build_from_device(node, *built)
-                        except DuplicateBuildKeys:
-                            pass  # N:M build: the host path below constructs the per-key runs
-                    if exec_ is None:
-                        exec_ = HashJoinExec.build(node, sub.run(), device=self.device)
+                    exec_ = HashJoinExec.build(node, *sub.run_device())
                 self._absorb(sub)
                 self.pool.reserve(exec_.state_bytes())
             except MemoryPoolError:
@@ -1575,7 +1570,7 @@ class LocalExecutor:
                 # owner degrades; a sub-executor's refusal reaches it.
                 if not self._own_pool or not self.config.spill_enabled:
                     raise
-                sub = built = exec_ = None  # free the oversized build state
+                sub = exec_ = None  # free the oversized build state
                 self._grace_replan(node, tile_rows, config)
                 return
             self.build_seconds += time.perf_counter() - t0
@@ -2407,14 +2402,14 @@ class LocalExecutor:
         return self._result_table(arrays, layout, strings)
 
     def run_device(self):
-        """Execute a collect-kind pipeline keeping results device-resident.
-
-        Returns (list of compacted device Batches, tuple of per-tile error
-        scalars), or None when the pipeline kind needs host finalization
-        (aggregations, finishers) — callers fall back to ``run()`` there.
+        """Execute the pipeline to device batches: (list of Batches, tuple of
+        per-tile error scalars).  A collect-kind pipeline keeps its compacted
+        tiles device-resident; a kind that needs host finalization
+        (aggregations, finishers) runs ``run()`` and uploads its result, whose
+        errors ``run()`` has already raised.
         """
         if self.kind != "collect" or self.lin.finishers:
-            return None
+            return table_batches(self.run(), self.tile_rows, self.device)
         batches, errs = [], []
         make_tiles, _ = self._tile_source(None)
         for tile in make_tiles():

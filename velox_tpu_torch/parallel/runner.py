@@ -54,6 +54,7 @@ from ..exec.runner import (
     _raise_on_errors,
     apply_finishers,
     apply_streaming,
+    table_batches,
 )
 from ..io.table import Table
 from ..plan.nodes import PlanNode
@@ -177,7 +178,7 @@ class DistributedExecutor:
                     continue
                 except JoinBuildError:
                     pass  # join type unsupported: broadcast instead
-            exec_ = HashJoinExec.build(node, build, device=self.device)
+            exec_ = HashJoinExec.build(node, *table_batches(build, per_device_rows, self.device))
             if exec_.expansion:
                 # a duplicate-key (N:M) build produces data-dependent output
                 # sizes; the shuffle-join segments size and overflow-guard
