@@ -26,11 +26,13 @@ data is the same in every run.  The script
    do not reach: the executor sends direct-mode int64 sums to it only off
    the piece path) through their own entry points over the same tiles,
    checked against the same answers; then Q12 at SF ``sf`` the same way,
-   whose array-mode aggregation after its join sends each int64 accumulator
-   to ``grouped_int64_sums`` (7 launches a tile, each call held bit for bit
-   against the plain version); then reads the counts and fails if any
-   kernel was not launched, and times K3 at Q12's shape (one column of the
-   joined batch, 7 groups, nearly every row dead) for the kernels line;
+   whose join takes the hashed probe (``hash_probe``, K5, one launch a tile)
+   and whose array-mode aggregation after it sends each int64 accumulator
+   to ``grouped_int64_sums`` (7 launches a tile), each call of either held
+   bit for bit against its plain version; then reads the counts and fails
+   if any kernel was not launched, and times K3 at Q12's shape (one column
+   of the probe batch, 7 groups, nearly every row dead) and K5 at Q12's
+   shape (its longest walk through the table too) for the kernels line;
 5. times Q6 and Q1 (median of ``--runs``), with the device-busy share from
    ``torch.profiler``;
 6. times the primitives the sort-mode paths are made of (``torch.sort``,
@@ -48,6 +50,9 @@ data is the same in every run.  The script
    more with tiles of 2^22 rows, for its rows only, so that its build side's
    carry merge is held against the oracle too.  These paths launch none of
    the three ported kernels (the JAX package has no Pallas kernel on them);
+   a join whose grouping reads no key order takes the hashed probe, one
+   launch of K5 a tile (``k5_launches``: Q13's, and none in Q3 at SF 10,
+   whose grouping over several tiles is presorted);
    Q13's NOT LIKE over ``o_comment`` is one launch of K4
    (``ops/dict_like.py``) for its plan, in its build side (asserted), and
    the ``q13`` line and the kernels line time K4 over that dictionary,
@@ -174,8 +179,9 @@ data is the same in every run.  The script
    build, then the group exchange) and D-Q13 (a shuffle join into grouping)
    at SF ``sf``, each row-exact against the numpy oracle; DX-skew, Q3 with
    a probe bucket of ``DIST_SKEW_BUCKET_ROWS`` rows, which overflows and
-   re-probes (asserted); the 22 plans at SF 1 against the port's
-   ``LocalExecutor`` rows; DX-nccl, Q3 at SF 1 on NCCL at world size 1.
+   re-probes (asserted); then, the SF ``sf`` tables released, the 22 plans
+   at SF 1 against the port's ``LocalExecutor`` rows; DX-nccl, Q3 at SF 1
+   on NCCL at world size 1.
    Each line holds the world, the backend, whether the collectives staged
    through host buffers, the collectives' calls and bytes, the shuffle
    buckets, the carry slots, the retries, ``query_s`` (the whole query on
@@ -200,6 +206,7 @@ from __future__ import annotations
 
 import argparse
 import faulthandler
+import gc
 import json
 import statistics
 import subprocess
@@ -3174,6 +3181,8 @@ def run_distributed(cache, small, device, oracles, tile_rows: int):
     undersized probe bucket (the re-probe asserted); the 22 plans at SF
     ``small.sf`` against the port's LocalExecutor rows; DX-nccl, Q3 at SF
     ``small.sf`` on NCCL at world size 1.  Yields each line's fields."""
+    import shutil
+
     from velox_tpu_torch.config import QueryConfig
     from velox_tpu_torch.connectors.tpch.plans import build_query
     from velox_tpu_torch.connectors.tpch.queries import QUERY_COLUMNS
@@ -3212,6 +3221,12 @@ def run_distributed(cache, small, device, oracles, tile_rows: int):
         assert got["after"]["sjoin_buckets"][0] > DIST_SKEW_BUCKET_ROWS, got["after"]
         yield dict(_dist_line("DX-skew", 3, cache.sf, got), bucket_rows=DIST_SKEW_BUCKET_ROWS,
                    correct=True)
+        # the sweep reads SF ``small.sf`` only: the SF ``cache.sf`` tables
+        # and their shared files go first (with them held, the four ranks'
+        # host-staged exchanges of the sweep came within 4 GiB of a 96 GiB
+        # host at SF 10)
+        shutil.rmtree(handle, ignore_errors=True)
+        cache.release()
         t0 = time.perf_counter()
         handle = world.share_tables(tables_of(small, range(1, 23)))
         share_s = time.perf_counter() - t0
@@ -3658,20 +3673,37 @@ def drive_ops(tiles6, ex1, tiles1, q1_result, q6_exact: int):
 
 def drive_q12(cache, tile_rows: int):
     """Q12 at the cache's scale factor through ``LocalExecutor`` over
-    device-resident tiles, row-exact against the numpy oracle.  It groups by
-    ship mode in array mode after its join, off the piece path, so each of a
-    tile's int64 accumulators is one call of ``grouped_int64_sums`` over the
-    joined batch.  Every call the run makes is held bit for bit against
-    ``grouped_int64_sums_plain``; a copy of the first call's operands is
-    kept.  Returns (K3 launches of the run, tiles, the kept operands)."""
+    device-resident tiles, row-exact against the numpy oracle.  Its grouping
+    reads no row order, so its join takes the hashed probe, one ``hash_probe``
+    (K5) a tile; it groups by ship mode in array mode after its join, off the
+    piece path, so each of a tile's int64 accumulators is one call of
+    ``grouped_int64_sums`` over the probe batch.  Every call of either
+    kernel the run makes is held bit for bit against its plain version; a
+    copy of the first call's operands of each is kept.  Returns (K3
+    launches of the run, tiles, K3's kept operands, K5 launches, K5's kept
+    operands)."""
     import types
 
-    from velox_tpu_torch.ops import group_sum, segmented
+    import torch
+
+    from velox_tpu_torch.exec import joins
+    from velox_tpu_torch.ops import group_sum, hash_probe, segmented
 
     ex, tiles, tables, rep = prepare_query(12, cache.sf, tile_rows, cache)
     assert rep["kind"] == "direct_agg" and rep["piece_path"] is False, rep
+    assert [j.hashed for j in join_steps(ex)] == [True]
     real = group_sum.grouped_int64_sums
-    kept = []
+    kept, probes = [], []
+
+    def checked_probe(table, keys, length, selection=None, validity=None):
+        got = hash_probe.hash_probe(table, keys, length, selection, validity)
+        want = hash_probe.hash_probe_plain(table, keys, length, selection, validity)
+        assert torch.equal(got, want), "hash_probe disagrees with its plain version in Q12"
+        if not probes:
+            probes.append((table, keys.clone(), length.clone(),
+                           None if selection is None else selection.clone(),
+                           None if validity is None else validity.clone()))
+        return got
 
     def checked(cols, gids, mask, num_groups):
         got = real(cols, gids, mask, num_groups)
@@ -3682,18 +3714,22 @@ def drive_q12(cache, tile_rows: int):
                          num_groups))
         return got
 
-    before = real.launches
-    # direct_group_reduce reaches the kernel through its module's name
+    before, k5_before = real.launches, hash_probe.hash_probe.launches
+    # direct_group_reduce reaches K3 through its module's name, the join K5
+    # through its own
     segmented.group_sum = types.SimpleNamespace(
         grouped_int64_sums=checked, MAX_TABLE_BYTES=group_sum.MAX_TABLE_BYTES
     )
+    joins.hash_probe = checked_probe
     try:
         check_result(12, ex, tiles, tables)
     finally:
         segmented.group_sum = group_sum
+        joins.hash_probe = hash_probe.hash_probe
     [(cols, gids, mask, groups)] = kept
     assert len(cols) == 1 and groups == ex.agg_exec.num_groups, (len(cols), groups)
-    return real.launches - before, len(tiles), kept[0]
+    k5 = hash_probe.hash_probe.launches - k5_before
+    return real.launches - before, len(tiles), kept[0], k5, probes[0]
 
 
 def k3_at_q12_record(operands, runs: int, launches: int):
@@ -3711,11 +3747,12 @@ def k3_at_q12_record(operands, runs: int, launches: int):
     assert equal_bits(got, want), ("grouped_int64_sums disagrees at Q12's shape", got, want)
     n = gids.shape[0]
     live = int((mask & (gids >= 0) & (gids < groups)).sum())
-    assert 0 < live * 20 < n, (live, n)  # nearly every row of the joined batch is dead
+    assert 0 < live * 20 < n, (live, n)  # nearly every row of the probe batch is dead
     moved = tensor_bytes(*cols, gids, mask) + 8 * groups * len(cols)
     b_ms, b_by = bound(moved, live * len(cols))
     record = dict(
-        name="grouped_int64_sums", shape="q12 joined batch, 1 int64 column", route="cuda",
+        name="grouped_int64_sums", shape=f"q12 probe batch of {n} rows, 1 int64 column",
+        route="cuda",
         source="velox_tpu_torch/csrc/grouped_int64_sums.cu",
         replaces="velox_tpu/ops/pallas_group_sum.py:139",
         max_abs_err=0,
@@ -3724,6 +3761,48 @@ def k3_at_q12_record(operands, runs: int, launches: int):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         rows=n, live_rows=live, bytes=moved, columns=len(cols), groups=groups,
         geometry=grouped_int64_sums.last_geometry.summary(), launches=launches,
+    )
+    record["share_of_bound"] = record["bound_ms"] / record["ms"]
+    return record
+
+
+def k5_at_q12_record(operands, runs: int, launches: int):
+    """The kernels line's record of ``hash_probe`` (K5) at the shape Q12's
+    executor gives it: the first tile's probe of the orders table, slot ids
+    held equal to the plain version's (a binary search of the sorted keys),
+    the longest walk through the table, and the time against the byte bound
+    (the selection and validity bytes and 4 bytes of slot id a row, and a
+    live row's key, its slot and the build key it names)."""
+    import torch
+
+    from velox_tpu_torch.ops.hash_probe import hash_probe, hash_probe_plain
+
+    table, keys, length, selection, validity = operands
+    walk = torch.zeros((1,), dtype=torch.int32, device=keys.device)
+    got = hash_probe(table, keys, length, selection, validity, walk=walk)
+    want = hash_probe_plain(table, keys, length, selection, validity)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "hash_probe disagrees with its plain version at Q12's shape"
+    n = keys.shape[0]
+    live = torch.arange(n, device=keys.device) < length
+    for m in (selection, validity):
+        if m is not None:
+            live = live & m
+    live = int(live.sum())
+    masks = [m for m in (selection, validity) if m is not None]
+    moved = n * 4 + tensor_bytes(*masks) + live * (keys.element_size() + 4 + 8)
+    b_ms, b_by = bound(moved, live)
+    record = dict(
+        name="hash_probe", shape=f"q12 probe of {n} lineitem rows into {table.keys.shape[0]} "
+        "orders", route="cuda", source="velox_tpu_torch/csrc/hash_probe.cu", replaces=None,
+        max_abs_err=int((got.long() - want.long()).abs().max()),
+        ms=median_ms(lambda: hash_probe(table, keys, length, selection, validity), runs),
+        plain_ms=median_ms(lambda: hash_probe_plain(table, keys, length, selection, validity),
+                           runs),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        rows=n, live_rows=live, hits=int((want >= 0).sum()), bytes=moved,
+        key_bytes=keys.element_size(), slots=table.capacity, longest_walk=int(walk.item()),
+        geometry=None, launches=launches,
     )
     record["share_of_bound"] = record["bound_ms"] / record["ms"]
     return record
@@ -3770,6 +3849,12 @@ class TpchTables:
         """The page-locked bytes each table keeps for the streaming scans of
         it and of its views (``Table.kept_bytes``)."""
         return {name: t.kept_bytes() for name, t in self._tables.items()}
+
+    def release(self) -> None:
+        """Drop every table, and with it the page-locked tiles it keeps, so
+        that its host memory can go; a later ``table`` generates it again."""
+        self._tables.clear()
+        gc.collect()
 
 
 def plan_query(num: int, tables, tile_rows: int, plan=None):
@@ -4201,23 +4286,26 @@ def main() -> int:
     oracles = {6: want6, 1: want1}  # the SQL texts are held against these too
     q6_exact = int(result6.columns["revenue"][0])  # unscaled DECIMAL(18,4)
     passing = drive_ops(tiles6, ex1, tiles1, result1, q6_exact)
-    q12_k3, q12_tiles, q12_call = drive_q12(cache, args.tile_rows)
+    q12_k3, q12_tiles, q12_call, q12_k5, q12_probe = drive_q12(cache, args.tile_rows)
     launches = {name: w.launches for name, w in wrappers.items()}
     assert launches["grouped_piece_sums"] == len(tiles1), launches
     assert launches["selective_sum"] == len(tiles6), launches
     # Q12: two exact BIGINT sums of three limbs and the row count, a tile
     assert q12_k3 == 7 * q12_tiles, (q12_k3, q12_tiles)
+    # Q12's join: one hashed probe a tile (4 at SF 10)
+    assert q12_k5 == q12_tiles, (q12_k5, q12_tiles)
     assert launches["grouped_int64_sums"] == len(tiles1) + q12_k3, launches
     assert all(n > 0 for n in launches.values()), launches
     say("main_path", launches=launches, q6_rows_passing=passing,
         q6_revenue=float(got6["revenue"][0]), q1_groups=int(len(got1)),
         q1_count_order=[int(x) for x in got1["count_order"]],
-        q12_k3_launches=q12_k3, q12_tiles=q12_tiles)
+        q12_k3_launches=q12_k3, q12_k5_launches=q12_k5, q12_tiles=q12_tiles)
 
     # the kernels line, with K3 at the shape Q12's executor gave it; each
     # record's launches are those of the main path at its shape
     records.append(k3_at_q12_record(q12_call, args.runs, q12_k3))
-    del q12_call
+    records.append(k5_at_q12_record(q12_probe, args.runs, q12_k5))
+    del q12_call, q12_probe
     for r, n in zip(records, (launches["selective_sum"], launches["grouped_piece_sums"],
                               len(tiles1))):
         r["launches"] = n
@@ -4252,6 +4340,7 @@ def main() -> int:
     # launch none of the hand-written kernels, and must not.
     before = dict((name, w.launches) for name, w in wrappers.items())
     from velox_tpu_torch.ops.dict_like import dict_like
+    from velox_tpu_torch.ops.hash_probe import hash_probe
 
     for num in (3, 13):
         before_gen = dict(cache.generate_s)
@@ -4262,12 +4351,17 @@ def main() -> int:
         assert ex.kind == "sort_agg_device", ex.kind
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        k5_before = hash_probe.launches
         _, got, oracles[num] = check_result(num, ex, tiles, tables)
         check_s = time.perf_counter() - t0
+        # a presorted grouping (Q3 over several tiles, 0 at SF 10) reads the
+        # merge probe's key order; otherwise one hashed probe a tile
+        k5 = hash_probe.launches - k5_before
+        assert k5 == (0 if ex.agg_exec.presorted else len(tiles)), (num, k5, len(tiles))
         first = sort_mode_report(ex)
         first["device_peak_bytes_first_run"] = torch.cuda.max_memory_allocated()
         assert not ex.carry_overflowed, first
-        extra = {}
+        extra = {"k5_launches": k5}
         if num == 3:
             # several tiles: grouped without a sort, merged through the carry
             assert rep["tiles"] == 1 or (rep["presorted"] and ex.carry_groups), (rep, first)
@@ -4504,6 +4598,7 @@ def main() -> int:
     # share the card (Q6, Q1, Q3, Q13 at --sf, DX-skew, the 22 plans at SF 1)
     # and over NCCL at world size 1 (DX-nccl); every line row-exact
     torch.cuda.empty_cache()
+    kept = cache.kept_bytes()  # the distributed slice releases these tables
     t0 = time.perf_counter()
     for fields in run_distributed(cache, small, DEVICE, oracles, args.tile_rows):
         assert fields["correct"], fields
@@ -4511,7 +4606,7 @@ def main() -> int:
         summary[f"distributed {fields['line']}"] = [None, None, None, fields["query_s"] * 1e3]
     say("distributed_total", seconds=time.perf_counter() - t0)
     say("generate", sf=args.sf, seconds=cache.generate_s, sf1_seconds=small.generate_s)
-    kept, sf1_kept = cache.kept_bytes(), small.kept_bytes()
+    sf1_kept = small.kept_bytes()
     say("page_locked_kept", sf=args.sf, bytes=sum(kept.values()), by_table=kept,
         sf1_bytes=sum(sf1_kept.values()), sf1_by_table=sf1_kept)
 

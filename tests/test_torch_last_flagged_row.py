@@ -79,6 +79,7 @@ def test_every_engine_site_on_its_own_inputs(monkeypatch):
     from velox_tpu_torch.connectors.tpch import plans
     from velox_tpu_torch.connectors.tpch.queries import SQL
     from velox_tpu_torch.exec.runner import LocalExecutor
+    from velox_tpu_torch.plan.nodes import HashJoinNode
     from velox_tpu_torch.sql import run_sql
 
     hits = Counter()
@@ -105,10 +106,15 @@ def test_every_engine_site_on_its_own_inputs(monkeypatch):
     monkeypatch.setattr(seg, "last_flagged", checked_last)
     monkeypatch.setattr(seg, "next_flagged", checked_next)
     monkeypatch.setattr(port_joins, "last_flagged", checked_last)
-    # Q3 by plan: fused probes, presorted grouping, carry merge; Q16 by
-    # plan: the classification probe; Q3 by SQL: an expansion join
-    for num in (3, 16):
-        tables = plans.load_query_tables(num, 0.01)
-        LocalExecutor(plans.build_query(num, tables), tile_rows=1 << 12, device="cpu").run()
+    # Q3 by plan: fused probes, presorted grouping, carry merge; Q16's joins
+    # as a collect pipeline: the classification probe (under Q16's grouping,
+    # which reads no key order, they probe hashed); Q3 by SQL: an expansion
+    # join
+    q3 = plans.build_query(3, plans.load_query_tables(3, 0.01))
+    LocalExecutor(q3, tile_rows=1 << 12, device="cpu").run()
+    q16_joins = plans.build_query(16, plans.load_query_tables(16, 0.01))
+    while not isinstance(q16_joins, HashJoinNode):
+        q16_joins = q16_joins.sources[0]
+    LocalExecutor(q16_joins, tile_rows=1 << 12, device="cpu").run()
     run_sql(SQL[3], plans.load_query_tables(3, 0.01), tile_rows=1 << 12, device="cpu")
     assert SITES <= set(hits), hits

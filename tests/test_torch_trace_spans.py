@@ -122,13 +122,19 @@ def inside(child, parents):
 
 @pytest.mark.parametrize("tile_rows", [1 << 15, 1 << 12])
 def test_q3_shaped_plan_spans_nest(tmp_path, tile_rows):
-    """One tile, and several (the carry merge); every span of the path."""
+    """One tile, and several (the carry merge); every span of the path.
+    One tile groups without reading the join's key order, so its probe is
+    the hashed one, a ``velox.hprobe`` inside the tile's steps."""
     plan, tile_rows = q3_shaped(tile_rows)
     with trace.device_profile(str(tmp_path)):
         LocalExecutor(plan, tile_rows=tile_rows, device="cpu").run()
     spans = spans_in(str(tmp_path))
     by = {k: [s for s in spans if s[0] == k] for k in {s[0] for s in spans}}
-    assert set(by) == {"construct", "build", "tile", "run", "steps", "aggregate", "sort", "fetch"}
+    one_tile = N_LINES <= tile_rows
+    assert set(by) == {"construct", "build", "tile", "run", "steps", "aggregate", "sort",
+                       "fetch"} | ({"hprobe"} if one_tile else set())
+    if one_tile:
+        assert len(by["hprobe"]) == 1 and inside(by["hprobe"][0], by["steps"])
     # the query's executor and its build side's sub-executor
     assert len(by["construct"]) == 2 and len(by["run"]) == 1
     outer = [s for s in by["construct"] if not inside(s, by["build"])]

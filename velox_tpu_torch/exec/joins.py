@@ -5,9 +5,8 @@ velox/exec/HashBuild.h:39 / HashProbe.h:28 / HashJoinBridge.h — the reference
 builds a quadratic-probing hash table from the build side and streams probe
 batches through it.
 
-This pass keeps the JAX package's algorithm, a **sort-merge lookup**, so that
-every function can be held against its twin (a hash probe written for the GPU
-is a later change, measured against this one):
+Two probes of a unique build side.  The first keeps the JAX package's
+algorithm, a **sort-merge lookup**, whose output is in join-key order:
 
   1. build side: key-sorted tensors, sorted and kept on the device (the
      JoinBridge analog; ``HashJoinExec.build``);
@@ -19,7 +18,13 @@ is a later change, measured against this one):
   4. the output is emitted in merged key order (fused probe) or compacted by a
      second sort (classification path).
 
-Everything is sort / scan / gather.  This is the normalized-key regime the
+The second, the **hashed probe** (``_probe_hashed``), looks each probe row up
+in a hash table of the build keys on the card (``ops/hash_probe.py``, K5) and
+keeps the probe batch's rows, order and capacity.  The executor takes it
+where no consumer reads the join's key order (``exec/runner.py
+_mark_hashed_joins``); everywhere else the merge stays.
+
+The merge is sort / scan / gather.  This is the normalized-key regime the
 reference itself prefers (HashTable kNormalizedKey, velox/exec/HashTable.h:74):
 multi-column keys are packed into one int64 normalized key from build-side
 value ranges (VectorHasher range mode, velox/exec/VectorHasher.h:118); probe
@@ -60,10 +65,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.hash_probe import HashTable, build_hash_table, hash_probe
 from ..ops.segmented import last_flagged, next_flagged
 from ..ops.sortkey import sort_operands
 from ..plan.nodes import HashJoinNode, JoinType
-from ..vector.column import Batch, Column, _take_clamped as _take
+from ..vector.column import Batch, Column, Encoding, _take_clamped as _take
 
 
 class JoinBuildError(RuntimeError):
@@ -293,6 +299,11 @@ class HashJoinExec:
     # are sized to the probe batch's capacity (the distributed rank-local
     # pipelines) turn it off and keep the capacity-preserving probe
     allow_fused: bool = True
+    # set by the executor where no consumer reads the join's key order: the
+    # probe then looks rows up in a hash table (_probe_hashed), built at the
+    # first such probe
+    hashed: bool = False
+    _table: Optional[HashTable] = None
 
     probe_split_host = _not_ported("HashJoinExec.probe_split_host", "split dispatch")
 
@@ -308,7 +319,8 @@ class HashJoinExec:
         ]
         for values, validity in self.build_cols.values():
             tensors += [values, validity]
-        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        table = HashTable.nbytes(self.n_valid_build_keys) if self.hashed else 0
+        return table + sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
     def _prepare_build_payload(self, bounds_map) -> None:
         """Pack the build's non-key output columns (+ validity bits) into one
@@ -1019,6 +1031,98 @@ class HashJoinExec:
             n_all,
         )
 
+    # ---- hashed probe ---------------------------------------------------
+    def hashable(self) -> bool:
+        """Whether the hashed probe can serve this join: the build is
+        unique, in one key limb and not a distributed rank-local one."""
+        return (
+            self.allow_fused and not self.expansion
+            and self.build_keys_hi is None and self.build_size > 0
+        )
+
+    def _hashed_keys(self, batch: Batch):
+        """(probe keys, the rows whose key may match, the rows whose key is
+        not NULL): a single key in its stored width where its column is flat,
+        a composite key packed as the build packed it."""
+        cap = batch.capacity
+        if self.normalizer is None:
+            col = batch.column(self.node.left_keys[0])
+            stored = col.encoding == Encoding.FLAT and col.data.dtype in (
+                torch.int8, torch.int16, torch.int32, torch.int64
+            )
+            keys, validity = (col.data, col.validity) if stored else col.decode(cap)
+            return keys, validity, validity
+        (_, packed), not_null, key_ok, _ = self._probe_keys(batch)
+        return packed, key_ok, not_null
+
+    def _probe_hashed(self, batch: Batch) -> Batch:
+        """One lookup a probe row in a hash table of the build keys (K5).
+
+        The output keeps the probe batch's rows, order and capacity: left
+        columns pass through, a right key takes its left key's values, build
+        columns come from the matched slot (the packed payload where there
+        is one).  Selection and validity follow ``_fused_post``."""
+        node = self.node
+        jt = node.join_type
+        cap = batch.capacity
+        if self._table is None:
+            n = self.n_valid_build_keys
+            lo, hi = self.key_range if self.key_range is not None else (1, 0)
+            self._table = build_hash_table(self.build_keys[:n], lo, hi)
+        keys, key_ok, not_null = self._hashed_keys(batch)
+        dense = lambda t: None if t is None else t.contiguous()  # noqa: E731
+        slot = hash_probe(
+            self._table, keys.contiguous(), batch.length.to(torch.int32),
+            dense(batch.selection), dense(key_ok),
+        )
+        hit = slot >= 0
+        if jt in (JoinType.INNER, JoinType.LEFT_SEMI):
+            selection = hit
+        elif jt == JoinType.ANTI:
+            selection = ~hit
+            if node.null_aware and self.n_valid_build_keys > 0 and not_null is not None:
+                # NOT IN over a non-empty set: a NULL probe key never passes
+                selection = selection & not_null
+            if batch.selection is not None:
+                selection = selection & batch.selection
+        else:  # LEFT: probe-preserving
+            selection = batch.selection
+        idx = slot.clamp(min=0)
+        word = None
+        left_schema = node.left.output_schema
+        right_key_to_left = dict(zip(node.right_keys, node.left_keys))
+        out_cols: List[Column] = []
+        for name, dtype in zip(node.output_schema.names, node.output_schema.types):
+            if name in left_schema:
+                out_cols.append(batch.column(name))
+                continue
+            if name in right_key_to_left:
+                src = batch.column(right_key_to_left[name])
+                values, _ = src.decode(cap)
+                validity = hit if jt == JoinType.LEFT else None
+                out_cols.append(
+                    Column.flat(values.to(dtype.device_dtype), dtype, validity, src.strings)
+                )
+                continue
+            values, validity = self.build_cols[name]
+            if self.bp_plan is not None:
+                if word is None:
+                    word = self.bp_packed.index_select(0, idx)
+                g = self.bp_plan.unpack(word, self.bp_fields.index(("v", name)))
+                g = g.to(dtype.device_dtype)
+                gv = None
+                if ("n", name) in self.bp_fields:
+                    gv = self.bp_plan.unpack(word, self.bp_fields.index(("n", name))) != 0
+            else:
+                g = values.index_select(0, idx)
+                gv = None if validity is None else validity.index_select(0, idx)
+            if jt == JoinType.LEFT:
+                gv = hit if gv is None else (gv & hit)
+            out_cols.append(Column.flat(g, dtype, gv, self.build_tables.get(name)))
+        return Batch(
+            tuple(out_cols), batch.length, selection, node.output_schema, cap, batch.row_offset
+        )
+
     # ---- probe ---------------------------------------------------------
     def probe(self, batch: Batch) -> Batch:
         assert not self.expansion, "expansion joins go through probe_spans / expand"
@@ -1039,6 +1143,8 @@ class HashJoinExec:
                 cap,
             )
 
+        if self.hashed:
+            return self._probe_hashed(batch)
         fused = self._probe_fused(batch)
         if fused is not None:
             return fused

@@ -543,10 +543,11 @@ def _linearize(root: PlanNode) -> _Linear:
 
 def _pipeline_sort_keys(steps) -> Tuple[str, ...]:
     """Static walk of resolved pipeline steps: column names the final batch is
-    key-ordered by (joins emit key-sorted output; projects track renames)."""
+    key-ordered by (a merge-probe join emits key-sorted output, a hashed one
+    keeps its probe's order as a filter does; projects track renames)."""
     sorted_by: Tuple[str, ...] = ()
     for step in steps:
-        if step[0] == "join":
+        if step[0] == "join" and not step[1].hashed:
             node = step[1].node
             out = set(node.output_columns)
             names = []
@@ -1651,6 +1652,8 @@ class LocalExecutor:
             )
             ex = AggExecutor(lin.agg, self.capacity, presorted, max_rows=agg_max_rows)
             self.agg_exec = ex
+            if not ex.presorted and ex.mode != "collect_rows":
+                self._mark_hashed_joins(lin.steps)
             if ex.mode == "collect_rows":
                 self.kind = "collect_agg"
                 needed: List[str] = list(lin.agg.grouping_keys)
@@ -1685,6 +1688,25 @@ class LocalExecutor:
                     out_schema = step[1].output_schema
             self.out_schema = out_schema
             self._plan_device_sort()
+
+    def _mark_hashed_joins(self, steps) -> None:
+        """Send the joins of a pipeline whose aggregation reads no row order
+        to the hashed probe (``HashJoinExec._probe_hashed``): its output
+        keeps the probe's rows instead of merging them into key order, which
+        only a presorted grouping reads.  A join followed by an expand step
+        keeps the merge (AssignUniqueId numbers rows by position), as does
+        one whose table the memory budget refuses."""
+        from ..ops.hash_probe import HashTable
+
+        for step in reversed(steps):
+            if step[0] == "expand":
+                return
+            if step[0] == "join" and step[1].hashable():
+                try:
+                    self.pool.reserve(HashTable.nbytes(step[1].n_valid_build_keys))
+                except MemoryPoolError:
+                    continue
+                step[1].hashed = True
 
     def _grace_replan(self, node: HashJoinNode, tile_rows: int, config) -> None:
         """Run join ``node`` through the Grace path and construct this

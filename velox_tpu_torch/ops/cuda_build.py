@@ -53,6 +53,8 @@ _SIGNATURES = {
     "velox_grouped_int64_sums": [_P, _P, _I, _P, _I, _P, _P],
     "velox_grouped_limits": [_P],
     "velox_dict_like": [_P, _P, _I, _L, _P, _I, _P, _I, _I, _P, _P],
+    "velox_hash_build": [_P, _L, _P, _I, _I, _P],
+    "velox_hash_probe": [_P, _I, _P, _P, _P, _L, _P, _P, _I, _L, _L, _P, _P, _I, _P],
 }
 
 
