@@ -16,6 +16,13 @@ come back in the engine's host representation: decimals as unscaled int64
 (scale 2), dates as int32 days since 1970-01-01, strings as int32 codes into
 ``[""] + CATEGORIES`` (code 0 is the empty string).
 
+A rank of a multi-rank cell may take only its chunk of a table: the rows that
+``dbgen -C ranks -S rank+1`` writes (TPC-H v3 §4.1.3; dbgen's ``partial()``:
+``N // ranks`` contiguous rows a chunk, the last one also the remainder), and
+of ``lineitem`` the lines of its chunk of orders.  The whole column is made
+from the seed as ever and cut on the device, so chunks are disjoint, their
+union is the whole table, and only the rank's share reaches host memory.
+
 This module imports torch only: the reference reads the same columns.
 """
 
@@ -87,6 +94,13 @@ def sparse_orderkey(index: torch.Tensor) -> torch.Tensor:
     return (index // 8) * 32 + (index % 8) + 1
 
 
+def chunk_bounds(n: int, rank: int, ranks: int) -> Tuple[int, int]:
+    """Rows [lo, hi) of ``n`` in dbgen's chunk ``rank + 1`` of ``ranks``."""
+    size = n // ranks
+    lo = rank * size
+    return lo, (n if rank == ranks - 1 else lo + size)
+
+
 def retail_price_cents(partkey: torch.Tensor) -> torch.Tensor:
     """p_retailprice = (90000 + ((pk / 10) mod 20001) + 100 (pk mod 1000)) / 100."""
     return 90000 + (partkey // 10) % 20001 + 100 * (partkey % 1000)
@@ -103,6 +117,7 @@ class TpchColumns:
         self.n_orders = int(1_500_000 * sf)
         self.n_customers = int(150_000 * sf)
         self.n_parts = int(200_000 * sf)
+        self.n_suppliers = int(10_000 * sf)
         self._memo: Dict[str, torch.Tensor] = {}
 
     def draw(self, table: str, name: str, lo: int, hi: int, n: int) -> torch.Tensor:
@@ -121,22 +136,45 @@ class TpchColumns:
         """Rows of lineitem: the sum of the lines of every order."""
         return int(self.shared("n_lines").item())
 
+    def chunk(self, table: str, rank: int, ranks: int) -> Tuple[int, int]:
+        """Rows [lo, hi) of ``table`` in dbgen's chunk ``rank + 1`` of ``ranks``."""
+        if table == "lineitem":  # the lines of the chunk's orders
+            lo, hi = self.chunk("orders", rank, ranks)
+            ends = torch.cumsum(self.shared("lines"), 0)
+            return (int(ends[lo - 1]) if lo else 0), (int(ends[hi - 1]) if hi else 0)
+        rows = {"orders": self.n_orders, "orders_text": self.n_orders,
+                "customer": self.n_customers, "part": self.n_parts,
+                "supplier": self.n_suppliers}
+        return chunk_bounds(rows[table], rank, ranks)
+
     def column(self, table: str, name: str) -> torch.Tensor:
         """One column in the host representation's dtype, on the device."""
         return _column_module(table, name).make(self)
 
-    def columns(self, wanted: Dict[str, Iterable[str]]) -> Dict[str, Dict[str, torch.Tensor]]:
-        """{table: {column: device tensor}} for every column named."""
+    def columns(self, wanted: Dict[str, Iterable[str]],
+                chunk: Optional[Tuple[int, int, Iterable[str]]] = None
+                ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{table: {column: device tensor}} for every column named; with
+        ``chunk`` (rank, ranks, tables), each of those tables cut to the
+        rank's chunk."""
         out = {table: {name: self.column(table, name) for name in dict.fromkeys(names)}
                for table, names in wanted.items()}
+        if chunk is not None:
+            rank, ranks, tables = chunk
+            for table in set(tables) & set(out):
+                lo, hi = self.chunk(table, rank, ranks)
+                out[table] = {name: v[lo:hi].clone() for name, v in out[table].items()}
         self._memo.clear()
         return out
 
 
-def generate_host(sf: float, seed: int, wanted: Dict[str, Iterable[str]], device):
+def generate_host(sf: float, seed: int, wanted: Dict[str, Iterable[str]], device,
+                  chunk: Optional[Tuple[int, int, Iterable[str]]] = None):
     """Make the columns on ``device`` and copy each to host numpy once;
-    returns {table: {column: numpy array}} and frees the device copies."""
-    made = TpchColumns(sf, seed, device).columns(wanted)
+    returns {table: {column: numpy array}} and frees the device copies.
+    With ``chunk`` (rank, ranks, tables), only the rank's chunk of each of
+    those tables is copied."""
+    made = TpchColumns(sf, seed, device).columns(wanted, chunk)
     host = {t: {c: v.cpu().numpy() for c, v in cols.items()} for t, cols in made.items()}
     del made
     return host

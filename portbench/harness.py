@@ -13,6 +13,10 @@ returned, from the same generated columns.
 Everything a configuration, a cell, a query kind or a metric needs is found
 by name: ``configs/<name>.json``, ``workloads/<cell>.json``,
 ``queries/<kind>.py`` with ``reference/<kind>.py``, ``metrics/<metric>.py``.
+
+A configuration with a ``mesh`` runs across ranks, one process a card
+(``mesh.py``): each rank runs this same set-up, window and check through a
+``mesh.Rank`` in place of ``OneProcess``, which is the program in one process.
 """
 
 from __future__ import annotations
@@ -98,18 +102,32 @@ class Run:
 
 
 class Cell:
-    """A workload file with its configuration and query kinds."""
+    """A workload file with its configuration and query kinds, read from
+    ``folder`` (a package under ``portbench/``; tests keep cells of their
+    own), whose ``queries/`` and ``reference/`` may hold kinds of its own."""
 
     def __init__(self, name: str, scale_factor: Optional[float] = None,
-                 tile_rows: Optional[int] = None):
-        self.spec = load_json(HERE, "workloads", name + ".json")
-        self.config = load_json(HERE, "configs", self.spec["config"] + ".json")
+                 tile_rows: Optional[int] = None, folder: str = HERE):
+        self.folder = folder
+        self.spec = load_json(folder, "workloads", name + ".json")
+        self.config = load_json(folder, "configs", self.spec["config"] + ".json")
         self.sf = scale_factor if scale_factor is not None else self.config["scale_factor"]
         self.tile_rows = tile_rows if tile_rows is not None else self.config["tile_rows"]
         self.sequence: List[str] = self.spec["sequence"]
         self.rules: Dict[str, dict] = self.spec["parameters"]
-        self.kinds = {k: importlib.import_module(f"portbench.queries.{k}") for k in dict.fromkeys(self.sequence)}
-        self.references = {k: importlib.import_module(f"portbench.reference.{k}") for k in self.kinds}
+        # {"ranks", "backend"[, "timeout_s"]}: one process a rank (mesh.py)
+        self.mesh: Optional[dict] = self.config.get("mesh")
+        # {table: "replicated" | "chunk"}: what each rank holds (replicated if unnamed)
+        self.placement: Dict[str, str] = self.config.get("placement", {})
+        self.kinds = {k: self._module("queries", k) for k in dict.fromkeys(self.sequence)}
+        self.references = {k: self._module("reference", k) for k in self.kinds}
+
+    def _module(self, part: str, kind: str):
+        """``<folder>/<part>/<kind>.py`` where the folder has it, else the benchmark's own."""
+        package = "portbench"
+        if os.path.exists(os.path.join(self.folder, part, kind + ".py")):
+            package = os.path.relpath(self.folder, ROOT).replace(os.sep, ".")
+        return importlib.import_module(f"{package}.{part}.{kind}")
 
     def columns(self) -> Dict[str, List[str]]:
         """Every column any of the cell's kinds reads, by table."""
@@ -212,13 +230,11 @@ class K2Recorder:
             self._original, self._holders = None, []
 
 
-def run_query(kind: str, plan, tiles, tile_rows: int, device, spans: bool, q: Query):
-    """One query, timed from executor construction to the result on the
-    host; with ``spans``, construction and run are each a
+def run_query(kind: str, plan, tiles, executor, device, spans: bool, q: Query):
+    """One query, timed from executor construction (``executor(plan)``) to
+    the result on the host; with ``spans``, construction and run are each a
     ``record_function`` span closed by a synchronisation."""
     from torch.profiler import record_function
-
-    from velox_tpu_torch.exec.runner import LocalExecutor
 
     _sync(device)
     try:
@@ -226,7 +242,7 @@ def run_query(kind: str, plan, tiles, tile_rows: int, device, spans: bool, q: Qu
         if spans:
             with record_function(f"portbench.{kind}.query"):
                 with record_function(f"portbench.{kind}.construct"):
-                    ex = LocalExecutor(plan, tile_rows=tile_rows, device=device)
+                    ex = executor(plan)
                     _sync(device)
                 t1 = time.perf_counter()
                 with record_function(f"portbench.{kind}.pipeline"):
@@ -235,7 +251,7 @@ def run_query(kind: str, plan, tiles, tile_rows: int, device, spans: bool, q: Qu
             t2 = time.perf_counter()
             q.construct_s, q.pipeline_s = t1 - t0, t2 - t1
         else:
-            ex = LocalExecutor(plan, tile_rows=tile_rows, device=device)
+            ex = executor(plan)
             result = ex.run(prefetched_tiles=tiles)
             t2 = time.perf_counter()
         q.latency_s = t2 - t0
@@ -252,27 +268,78 @@ def process_age_s() -> float:
     return time.clock_gettime(time.CLOCK_BOOTTIME) - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
+class OneProcess:
+    """Where the program runs when the configuration has no ``mesh``: in this
+    process alone, ``LocalExecutor`` over whole tables.  ``mesh.Rank`` runs
+    the same set-up, window and check as one rank of several."""
+
+    ranks = 1
+
+    def __init__(self, cell: Cell, seconds: float, device):
+        self.cell, self.seconds, self.device = cell, seconds, device
+
+    def executor(self, plan):
+        from velox_tpu_torch.exec.runner import LocalExecutor
+
+        return LocalExecutor(plan, tile_rows=self.cell.tile_rows, device=self.device)
+
+    def host(self, seed: int, data_device):
+        """The columns this process holds, made from the seed."""
+        return datagen.generate_host(self.cell.sf, seed, self.cell.columns(), data_device)
+
+    def whole(self, host, seed: int, data_device):
+        """Every row of every table, for the reference."""
+        return host
+
+    def window_opens(self) -> float:
+        """The set-up's seconds, read as the window opens."""
+        return process_age_s()
+
+    def rows(self, tables) -> Dict[str, int]:
+        """Base-table rows a query of each kind scans."""
+        return {k: sum(tables[k][t].num_rows for t in mod.TABLES)
+                for k, mod in self.cell.kinds.items()}
+
+    def go(self, elapsed_s: float, queries: List[Query]) -> bool:
+        """Whether the window sends another query."""
+        return elapsed_s < self.seconds
+
+    def gather(self, setup_peak, window_peak, queries: List[Query], profile) -> Optional[dict]:
+        """What the result reports of every rank: the window's and the whole
+        run's memory peak (the fullest rank's), each rank's peak and
+        queries, the answers that differ from rank 0's, the device's busy
+        seconds (their mean); None on a rank that reports nothing."""
+        peak = None if window_peak is None else max(setup_peak, window_peak)
+        return {"window_peak": window_peak, "memory_peak": peak, "by_rank": [peak],
+                "attempted": [len(queries)], "mismatched": 0,
+                "busy_s": profile.busy_s() if profile is not None else None}
+
+
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
-             scale_factor: Optional[float] = None, tile_rows: Optional[int] = None) -> dict:
+             scale_factor: Optional[float] = None, tile_rows: Optional[int] = None,
+             folder: str = HERE, place=OneProcess) -> Optional[dict]:
     """One run of cell ``name``; returns the result line's object.  ``device``
     None is the CUDA device (the program raises without one); the CPU, with
     a smaller ``scale_factor`` and ``tile_rows``, is for rehearsals and
-    tests only."""
-    cell = Cell(name, scale_factor, tile_rows)
+    tests only.  ``place(cell, seconds, device)`` says where the program
+    runs (``OneProcess``, or a rank of ``mesh.py``, where only rank 0
+    returns the result and the others None)."""
+    cell = Cell(name, scale_factor, tile_rows, folder)
     on_gpu = device is None or torch.device(device).type == "cuda"
     data_device = "cuda" if on_gpu else device
-    host, tables, tiles, phases = set_up(cell, seed, device, data_device)
+    place = place(cell, seconds, device)
+    host, tables, tiles, phases = set_up(cell, seed, device, data_device, place)
     setup_peak = None
     if on_gpu:
         torch.cuda.synchronize()
         setup_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-    setup_s = process_age_s()
+    setup_s = place.window_opens()
 
-    rows = {k: sum(tables[k][t].num_rows for t in mod.TABLES) for k, mod in cell.kinds.items()}
+    rows = place.rows(tables)
     stretch = cell.spec["profiled_queries"] if trace else 0
     queries, window_s, profile, pauses = window(
-        cell, seed, seconds, stretch, tables, tiles, rows, device, on_gpu)
+        cell, seed, place, stretch, tables, tiles, rows, device, on_gpu)
     window_peak = None
     if on_gpu:
         torch.cuda.synchronize()
@@ -290,10 +357,15 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     for q in queries:
         if q.result is not None:
             q.answer, q.result = answer_of(q.result), None
-    checks = check_answers(cell, host, queries, data_device)
+    ranks = place.gather(setup_peak, window_peak, queries, profile)
+    if ranks is None:
+        return None
+    checks = check_answers(cell, place.whole(host, seed, data_device), queries, data_device)
+    checks["mismatched_cells"]["value"] += ranks["mismatched"]
     check_s = time.perf_counter() - t_check
 
-    run = Run("gpu" if on_gpu else "cpu", setup_s, window_s, queries, window_peak, profile)
+    run = Run("gpu" if on_gpu else "cpu", setup_s, window_s, queries, ranks["window_peak"],
+              profile)
     metrics = {}
     for m in benchmark()["per_layer" if trace else "end_to_end"]:
         if "workloads" in m and name not in m["workloads"]:
@@ -301,17 +373,20 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
         value = importlib.import_module(f"portbench.metrics.{m['name']}").read(run)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    dev = {"platform": run.platform, "count": 1}
+    dev = {"platform": run.platform, "count": place.ranks}
     if on_gpu:
-        dev.update(kind=torch.cuda.get_device_name(), memory_peak_bytes=max(setup_peak, window_peak),
+        dev.update(kind=torch.cuda.get_device_name(), memory_peak_bytes=ranks["memory_peak"],
                    power_limit_w=power_limit_w())
     else:
         dev.update(kind="cpu", memory_peak_bytes=0)
     out = {"correct": bool(queries) and all(c["value"] <= c["limit"] for c in checks.values()),
            "attempted": len(queries), "failed": sum(q.error is not None for q in queries),
            "metrics": metrics, "device": dev}
+    if place.ranks > 1:
+        dev["memory_peak_bytes_by_rank"] = ranks["by_rank"] if on_gpu else [0] * place.ranks
+        out["attempted_by_rank"] = ranks["attempted"]
     if profile is not None and on_gpu:
-        dev.update(busy_s=profile.busy_s(), window_s=profile.window_s)
+        dev.update(busy_s=ranks["busy_s"], window_s=profile.window_s)
         out["breakdown"] = {"device_ops": profile.device_ops(), "idle_gaps": profile.idle_gaps()}
     out["checks"] = checks
     phases.update(window=window_s, check=check_s)
@@ -319,13 +394,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     return out
 
 
-def set_up(cell: Cell, seed: int, device, data_device):
+def set_up(cell: Cell, seed: int, device, data_device, place: OneProcess):
     """The cell's columns made from the seed and copied to the program's host
     tables, each query kind's resident tiles uploaded and one query of each
     kind run; returns (host columns, tables by kind, tiles by kind, the
     seconds of each phase)."""
-    from velox_tpu_torch.exec.runner import LocalExecutor
-
     phases = {"start": process_age_s()}
     clock = time.perf_counter()
 
@@ -334,7 +407,7 @@ def set_up(cell: Cell, seed: int, device, data_device):
         _sync(device)
         phases[name], clock = time.perf_counter() - clock, time.perf_counter()
 
-    host = datagen.generate_host(cell.sf, seed, cell.columns(), data_device)
+    host = place.host(seed, data_device)
     phase("data")
     base = program_tables(host)
     tables = {k: {t: base[t].select(cols) for t, cols in mod.TABLES.items()}
@@ -343,8 +416,7 @@ def set_up(cell: Cell, seed: int, device, data_device):
     warm_rng = np.random.default_rng([int(seed), 1])
     tiles = {}
     for k, mod in cell.kinds.items():
-        ex = LocalExecutor(mod.build(tables[k], params.draw(cell.rules[k], warm_rng)),
-                           tile_rows=cell.tile_rows, device=device)
+        ex = place.executor(mod.build(tables[k], params.draw(cell.rules[k], warm_rng)))
         tiles[k] = ex.device_tiles()
         phase(f"tiles.{k}")
         ex.run(prefetched_tiles=tiles[k])
@@ -364,9 +436,10 @@ def draws(cell: Cell, seed: int) -> Iterator[Tuple[str, dict]]:
         yield kind, params.draw(cell.rules[kind], rng)
 
 
-def window(cell: Cell, seed: int, seconds: float, stretch: int, tables, tiles, rows, device,
+def window(cell: Cell, seed: int, place: OneProcess, stretch: int, tables, tiles, rows, device,
            on_gpu: bool):
-    """The closed loop: query after query until ``seconds`` have passed.
+    """The closed loop: query after query while ``place.go`` says so (in one
+    process, until the run's seconds have passed).
     With ``stretch``, every query has spans, and the profiler records
     ``stretch`` queries after its first ``PROFILER_WARMUP``.  Returns
     (queries, seconds it took, the profiled stretch or None, the
@@ -380,7 +453,7 @@ def window(cell: Cell, seed: int, seconds: float, stretch: int, tables, tiles, r
     pauses = GcPauses()
     gc.callbacks.append(pauses)
     t_start = time.perf_counter()
-    while time.perf_counter() - t_start < seconds:
+    while place.go(time.perf_counter() - t_start, queries):
         i = len(queries)
         if prof is not None and i == first:
             recorder.install()
@@ -389,7 +462,7 @@ def window(cell: Cell, seed: int, seconds: float, stretch: int, tables, tiles, r
         t_plan = time.perf_counter()
         plan = cell.kinds[kind].build(tables[kind], q.params)
         q.plan_s = time.perf_counter() - t_plan
-        run_query(kind, plan, tiles[kind], cell.tile_rows, device, bool(stretch), q)
+        run_query(kind, plan, tiles[kind], place.executor, device, bool(stretch), q)
         queries.append(q)
         if prof is not None:
             if i + 1 == last:

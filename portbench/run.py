@@ -6,7 +6,8 @@ Prints the result as one JSON object on the last line of standard output, and
 each number the correctness check compared, beside its limit, as the last
 lines of standard error.  Exits non-zero, printing no result, when there is no
 CUDA device or fewer than the cell asks for, or when the run loaded JAX or the
-JAX package.
+JAX package.  A cell whose configuration has a ``mesh`` runs across ranks,
+one process a card (``mesh.py``); the configuration decides, not a flag.
 """
 
 import argparse
@@ -60,6 +61,11 @@ def main(argv=None) -> int:
         print(f"portbench: the cell needs {chips} CUDA device(s), this machine has {have}",
               file=sys.stderr)
         return 2
+    mesh = harness.Cell(args.workload).mesh
+    if mesh is not None:  # one process a card (mesh.py)
+        from portbench import mesh as ranks
+
+        return ranks.launch(args.workload, args.seed, args.seconds, bool(args.trace), mesh)
     try:
         out = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace))
     except harness.ForbiddenModules as e:
